@@ -108,20 +108,3 @@ def test_compute_batch_device_contour_matches_host():
         np.testing.assert_allclose(td, th)
         assert np.array_equal(fd > 0, fh > 0)
         assert np.abs(fd - fh).max() < 0.05
-
-
-@pytest.mark.parametrize("seed", [0, 2])
-def test_extend_kernel_matches_while_walk(seed):
-    """The Pallas extend-walk kernel (interpret) vs the XLA while_loop
-    walk: identical accept sequences -> identical fix_step3 output (both
-    paths share the select formulas; f32)."""
-    cand, score = _synth_candidates(1501, 28, seed)
-    cand = jnp.asarray(cand, jnp.float32)
-    score = jnp.asarray(score, jnp.float32)
-    base = CD.fix_step2(CD.fix_step1(
-        CD.search_f0_base(cand, score), 0.008), 6)
-    a = np.asarray(CD.fix_step3(base, cand, score, 0.18,
-                                use_extend_kernel=False))
-    b = np.asarray(CD.fix_step3(base, cand, score, 0.18,
-                                use_extend_kernel="interpret"))
-    np.testing.assert_array_equal(a, b)

@@ -25,13 +25,6 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name,value", [
-    ("WORLDTPU_ZC", "2"),
-    ("WORLDTPU_REFINE", "yes"),
-    ("WORLDTPU_OLA", "on"),
-    ("WORLDTPU_ZC_RB", "0"),
-    ("WORLDTPU_ZC_RB", "two"),
-    ("WORLDTPU_ZC_GROUPS", "-1"),
-    ("WORLDTPU_REFINE_GF", "0"),
     ("WORLDTPU_CONV", "fft"),
     ("WORLDTPU_CONV_PRECISION", "bf16"),
     ("WORLDTPU_GRID_MS", "0"),
@@ -48,18 +41,13 @@ def test_flag_defaults_parse(monkeypatch):
             monkeypatch.delenv(k)
     f = Flags.from_env()
     assert f.conv == "matmul" and f.grid_ms == 1
-    assert f.zc_rb == 2 and f.zc_groups == 10
-    assert f.refine_gf == 8
 
 
 def test_flag_accepts_supported(monkeypatch):
-    monkeypatch.setenv("WORLDTPU_ZC", "interpret")
     monkeypatch.setenv("WORLDTPU_CONV", "conv")
     monkeypatch.setenv("WORLDTPU_GRID_MS", "2")
-    monkeypatch.setenv("WORLDTPU_REFINE_GF", "16")
     f = Flags.from_env()
-    assert f.zc == "interpret" and f.conv == "conv"
-    assert f.grid_ms == 2 and f.refine_gf == 16
+    assert f.conv == "conv" and f.grid_ms == 2
 
 
 # ---------------------------------------------------------------------------
@@ -88,8 +76,7 @@ print("RESULT" + json.dumps(list(map(float, np.asarray(f0_out)))))
 _COMBOS = [
     {},                                        # defaults
     {"WORLDTPU_CONV": "conv"},
-    {"WORLDTPU_ZC_RB": "1", "WORLDTPU_ZC_GROUPS": "8"},
-    {"WORLDTPU_REFINE_GF": "16"},
+    {"WORLDTPU_CONV_PRECISION": "highest"},
 ]
 
 

@@ -1,7 +1,8 @@
-"""Pallas kernel parity vs the jnp production formulations (interpret mode).
+"""The Pallas (Triton) refine kernel against the dense jnp refine.
 
-The compiled kernels are exercised on real TPU by bench.py; here each kernel
-runs in the Pallas interpreter against the jnp path it replaces.
+Here the kernel runs in the Pallas interpreter, and is lowered for CUDA
+(Triton IR) without compiling.  Its compiled form runs on the GPU in
+``chip_smoke.py`` phase (b) and in the ``gpu``-marked test below.
 """
 
 import jax
@@ -9,7 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-pytestmark = pytest.mark.slow
+from worldtpu.analysis import harvest as H
+from worldtpu.ops.refine_kernel import refine_stage_triton
 
 
 def _vowel(fs, dur, f0_base, seed):
@@ -23,222 +25,111 @@ def _vowel(fs, dur, f0_base, seed):
     return (x * 0.5 + 0.003 * rng.randn(T)).astype(np.float32)
 
 
-@pytest.mark.parametrize("fs,f0b", [(16000, 180.0), (22050, 120.0)])
-def test_zc_kernel_matches_jnp_path(fs, f0b):
-    from worldtpu.analysis import harvest as H
-    from worldtpu.ops import zc_kernel as Z
-
-    x = _vowel(fs, 0.5, f0b, 0)
+def _deduped_inputs(fs, f0b, dur=0.3, seed=1):
+    x = _vowel(fs, dur, f0b, seed)
     geo = H.HarvestGeometry(fs, len(x))
-    dt = jnp.float32
-    y = H.decimate_stage(jnp.asarray(x, dt), ratio=geo.ratio,
+    y = H.decimate_stage(jnp.asarray(x), ratio=geo.ratio,
                          y_length=geo.y_length)
-    tpos1 = jnp.arange(geo.f0_length, dtype=dt) / 1000.0
-    Lmax = geo.max_filter_half
-    kern = H._bandpass_kernels(geo, dt)
-    ypad = jnp.pad(y, (Lmax - 1, Lmax + 1))
-    filt = jax.lax.conv_general_dilated(
-        ypad[None, None, :], kern[:, None, :],
-        window_strides=(1,), padding="VALID",
-        dimension_numbers=("NCW", "OIW", "NCW"),
-        precision=jax.lax.Precision.HIGHEST)[0]
-    bounds = jnp.asarray(geo.boundary_f0, dt)
-    raw_ref = np.asarray(jax.vmap(
-        lambda fi, b: H._band_candidates(fi, b, geo, tpos1))(filt, bounds))
-
-    raw_ker = np.asarray(Z.band_candidates_pallas(filt, geo, interpret=True))
-
-    rel = np.abs(raw_ker - raw_ref) / np.maximum(np.abs(raw_ref), 1e-3)
-    assert rel.max() < 1e-4
-    assert (raw_ker > 0).sum() == (raw_ref > 0).sum()
-
-
-def test_zc_kernel_silence():
-    """All-zero input: no events, all candidates zero (usable gate)."""
-    from worldtpu.analysis import harvest as H
-    from worldtpu.ops import zc_kernel as Z
-
-    fs = 16000
-    geo = H.HarvestGeometry(fs, 4000)
-    filt = jnp.zeros((geo.n_channels, geo.y_length), jnp.float32)
-    raw = np.asarray(Z.band_candidates_pallas(filt, geo, interpret=True))
-    assert raw.shape == (geo.n_channels, geo.f0_length)
-    assert np.all(raw == 0.0)
-
-
-def test_ola_kernel_matches_scatter():
-    from worldtpu.ops.ola_kernel import overlap_add
-
-    rng = np.random.RandomState(1)
-    P, fft, T = 61, 1024, 12007
-    resp = rng.randn(P, fft).astype(np.float32)
-    starts = rng.randint(-(fft - 1), T - 1, size=P).astype(np.int32)
-    j = np.arange(fft)
-    target = starts[:, None] + j[None, :]
-    ok = (target >= 0) & (target < T)
-    ref = np.zeros(T + 1, np.float32)
-    np.add.at(ref, np.where(ok, target, T), np.where(ok, resp, 0.0))
-    out = np.asarray(overlap_add(
-        jnp.asarray(resp), jnp.asarray(starts), T, interpret=True))
-    np.testing.assert_allclose(out, ref[:T], rtol=1e-5, atol=1e-5)
-
-
-def test_synthesis_ola_kernel_path(fix):
-    """Full f32 synthesis with the Pallas OLA (interpret) vs the scatter."""
-    from worldtpu.synthesis import synthesis as S
-
-    dt = jnp.float32
-    fs, fft_size = fix.fs, fix.fft_size
-    fp_s = fix.frame_period / 1000.0
-    out_len = int((len(fix.f0) - 1) * fp_s * fs) + 1
-    mp = S.default_max_pulses(out_len, fs)
-    noise = S.make_noise(jax.random.PRNGKey(0), mp, fft_size, dt)
-    args = (jnp.asarray(fix.f0, dt), jnp.asarray(fix.spec, dt),
-            jnp.asarray(fix.ap, dt), noise)
-    kw = dict(fs=fs, fft_size=fft_size, frame_period_s=fp_s,
-              out_length=out_len, max_pulses=mp)
-    y_scatter = np.asarray(
-        S.synthesis_frames_impl(*args, use_ola=False, **kw))
-    y_kernel = np.asarray(
-        S.synthesis_frames_impl(*args, use_ola="interpret", **kw))
-    np.testing.assert_allclose(y_kernel, y_scatter, rtol=2e-4, atol=1e-5)
+    tpos = jnp.arange(geo.f0_length, dtype=jnp.float32) / 1000.0
+    cand, _, _ = H.candidates_stage(y, 0.0, tpos, geo=geo)
+    return geo, y, H.dedup_candidates(cand), tpos
 
 
 @pytest.mark.parametrize("fs,f0b", [(16000, 180.0), (22050, 120.0)])
 def test_refine_kernel_matches_jnp_path(fs, f0b):
-    """Adaptive Pallas refine (interpret) vs the dense jnp refine: same
-    active candidate sets per frame (compacted order differs by design),
-    values to f32 rounding."""
-    from worldtpu.analysis import harvest as H
-    from worldtpu.ops.refine_kernel import refine_stage_pallas
-
-    x = _vowel(fs, 0.5, f0b, 1)
-    geo = H.HarvestGeometry(fs, len(x))
-    y = H.decimate_stage(jnp.asarray(x), ratio=geo.ratio,
-                         y_length=geo.y_length)
-    ym = y - jnp.mean(y)
-    tpos = jnp.arange(geo.f0_length, dtype=jnp.float32) / 1000.0
-    cand, _, _ = H.candidates_stage(y, jnp.mean(y), tpos, geo=geo,
-                                    use_zc=False)
-    r0, s0 = H.refine_stage(ym, cand, tpos, geo=geo)
-    r1, s1 = refine_stage_pallas(ym, cand, tpos, geo=geo, interpret=True)
-    r0, s0 = np.asarray(r0), np.asarray(s0)
-    r1, s1 = np.asarray(r1), np.asarray(s1)
-    mismatch = 0
-    for f in range(r0.shape[0]):
-        a, b = np.sort(r0[f][r0[f] > 0]), np.sort(r1[f][r1[f] > 0])
-        if len(a) != len(b):
-            mismatch += 1   # knife-edge score-2.5 / floor-ceil flips
-            continue
-        if len(a):
-            np.testing.assert_allclose(b, a, rtol=2e-3)
-    assert mismatch <= max(2, r0.shape[0] // 200)
-
-    # scores travel with their candidates: check the (f0, score) pairing
-    f = int(np.argmax((r0 > 0).sum(axis=1)))
-    a = np.argsort(r0[f][r0[f] > 0])
-    b = np.argsort(r1[f][r1[f] > 0])
-    if len(a) == len(b) and len(a) > 0:
-        np.testing.assert_allclose(
-            np.sort(s1[f][r1[f] > 0]), np.sort(s0[f][r0[f] > 0]), rtol=0.2)
+    """Interpreted kernel == dense refine_stage on the same deduplicated
+    candidates: same slots, values to f32 summation order."""
+    geo, y, cand, tpos = _deduped_inputs(fs, f0b)
+    r0, s0 = H.refine_stage(y, cand, tpos, geo=geo)
+    r1, s1 = refine_stage_triton(y, cand, tpos, geo=geo, interpret=True)
+    r0, s0, r1, s1 = map(np.asarray, (r0, s0, r1, s1))
+    assert r1.shape == r0.shape == cand.shape
+    np.testing.assert_array_equal(r1 > 0, r0 > 0)
+    np.testing.assert_allclose(r1, r0, rtol=0, atol=2e-3)
+    np.testing.assert_allclose(s1, s0, rtol=1e-3)
 
 
-@pytest.mark.parametrize("knob", [dict(gp=2), dict(gf=4)])
-def test_refine_kernel_fused_groups_bitwise(knob):
-    """gp=2 fuses two independent group chains per loop iteration; the
-    per-group math is untouched, so results are BITWISE equal to gp=1."""
-    from worldtpu.analysis import harvest as H
-    from worldtpu.ops.refine_kernel import refine_stage_pallas
-
-    fs, f0b = 16000, 180.0
-    x = _vowel(fs, 0.4, f0b, 1)
-    geo = H.HarvestGeometry(fs, len(x))
-    y = H.decimate_stage(jnp.asarray(x), ratio=geo.ratio,
-                         y_length=geo.y_length)
-    ym = y - jnp.mean(y)
-    tpos = jnp.arange(geo.f0_length, dtype=jnp.float32) / 1000.0
-    cand, _, _ = H.candidates_stage(y, jnp.mean(y), tpos, geo=geo,
-                                    use_zc=False)
-    r0, s0 = refine_stage_pallas(ym, cand, tpos, geo=geo, interpret=True)
-    r1, s1 = refine_stage_pallas(ym, cand, tpos, geo=geo, interpret=True,
-                                 **knob)
-    np.testing.assert_array_equal(np.asarray(r0), np.asarray(r1))
-    np.testing.assert_array_equal(np.asarray(s0), np.asarray(s1))
+def test_refine_kernel_vmap_matches_single():
+    """Under vmap (the batched pipeline) every row equals its own call."""
+    geo, y, cand, tpos = _deduped_inputs(16000, 150.0, dur=0.2)
+    r1, s1 = refine_stage_triton(y, cand, tpos, geo=geo, interpret=True)
+    half = jnp.where(jnp.arange(cand.shape[1]) < 3, cand, 0.0)
+    rb, sb = jax.vmap(lambda c: refine_stage_triton(
+        y, c, tpos, geo=geo, interpret=True))(jnp.stack([cand, half]))
+    np.testing.assert_array_equal(np.asarray(rb[0]), np.asarray(r1))
+    np.testing.assert_array_equal(np.asarray(sb[0]), np.asarray(s1))
+    r2, _ = refine_stage_triton(y, half, tpos, geo=geo, interpret=True)
+    np.testing.assert_array_equal(np.asarray(rb[1]), np.asarray(r2))
 
 
-@pytest.mark.parametrize("fs,f0b", [(16000, 180.0), (22050, 120.0)])
-def test_zc_adaptive_frame_tiles_bitwise(fs, f0b):
-    """The group-adaptive frame-tile width (ft*128 frames per merge-sweep
-    tile, sized so low-frequency groups amortize the fixed window slack)
-    only changes the tiling of the sweep loop — the selected segment row
-    and the interp formula per frame are identical, so results are
-    BITWISE equal to the ft=1 tiling."""
-    from worldtpu.analysis import harvest as H
-    from worldtpu.ops import zc_kernel as Z
-
-    x = _vowel(fs, 0.5, f0b, 3)
-    geo = H.HarvestGeometry(fs, len(x))
-    dt = jnp.float32
-    y = H.decimate_stage(jnp.asarray(x, dt), ratio=geo.ratio,
-                         y_length=geo.y_length)
-    Lmax = geo.max_filter_half
-    kern = H._bandpass_kernels(geo, dt)
-    ypad = jnp.pad(y, (Lmax - 1, Lmax + 1))
-    filt = jax.lax.conv_general_dilated(
-        ypad[None, None, :], kern[:, None, :],
-        window_strides=(1,), padding="VALID",
-        dimension_numbers=("NCW", "OIW", "NCW"),
-        precision=jax.lax.Precision.HIGHEST)[0]
-    a = np.asarray(Z.band_candidates_pallas(filt, geo, interpret=True))
-    b = np.asarray(Z.band_candidates_pallas(
-        filt, geo, interpret=True,
-        groups=Z.make_groups(geo, ft=1, win_round=64)))
-    np.testing.assert_array_equal(a, b)
+def test_refine_kernel_lowers_for_cuda():
+    """The batched kernel at config-5 width (3 s at 22.05 kHz, f0_floor 40)
+    lowers to a Triton custom call for CUDA; only the PTX compile needs
+    the card."""
+    fs = 22050
+    geo = H.HarvestGeometry(fs, 3 * fs, f0_floor=40.0)
+    F, S = geo.f0_length, geo.max_candidates
+    tpos = jnp.arange(F, dtype=jnp.float32) / 1000.0
+    f = jax.jit(jax.vmap(
+        lambda y, c: refine_stage_triton(y, c, tpos, geo=geo),
+        in_axes=(None, 0)))
+    low = f.trace(jax.ShapeDtypeStruct((geo.y_length,), jnp.float32),
+                  jax.ShapeDtypeStruct((8, F, S), jnp.float32)
+                  ).lower(lowering_platforms=("cuda",))
+    assert "xla.gpu.triton" in low.as_text()
 
 
-def test_zc_events_kernel_counts_match_dense():
-    """The phase-1 measurement hook (_zc_events_call) must stay honest:
-    its per-column event counts equal the dense crossing-mask counts."""
-    from worldtpu.analysis import harvest as H
-    from worldtpu.ops import zc_kernel as Z
-
+@pytest.mark.parametrize("platform,kernel", [
+    ("cuda", True), ("cpu", False), ("rocm", None)])
+def test_refine_production_lowers_per_platform(platform, kernel):
+    """The production refine picks its implementation per compiled
+    platform: the Triton kernel for CUDA, the dense refine for the CPU,
+    and no program at all elsewhere."""
     fs = 16000
-    x = _vowel(fs, 0.4, 170.0, 7)
-    geo = H.HarvestGeometry(fs, len(x))
-    dt = jnp.float32
-    y = H.decimate_stage(jnp.asarray(x, dt), ratio=geo.ratio,
+    geo = H.HarvestGeometry(fs, fs // 4)
+    F, S = geo.f0_length, geo.max_candidates
+    f = jax.jit(lambda y, c, t: H.refine_production(y, c, t, geo=geo,
+                                                    chunk=16))
+    args = (jax.ShapeDtypeStruct((geo.y_length,), jnp.float32),
+            jax.ShapeDtypeStruct((F, S), jnp.float32),
+            jax.ShapeDtypeStruct((F,), jnp.float32))
+    if kernel is None:
+        with pytest.raises(NotImplementedError):
+            f.trace(*args).lower(lowering_platforms=(platform,))
+        return
+    text = f.trace(*args).lower(lowering_platforms=(platform,)).as_text()
+    assert ("xla.gpu.triton" in text) == kernel
+
+
+def test_refine_kernel_cos_table_window():
+    """use_cos_table=True: the kernel reads the reference's quarter-wave
+    cosine table for the main window, like the dense path."""
+    x = _vowel(16000, 0.2, 170.0, 3)
+    geo = H.HarvestGeometry(16000, len(x), use_cos_table=True)
+    y = H.decimate_stage(jnp.asarray(x), ratio=geo.ratio,
                          y_length=geo.y_length)
-    Lmax = geo.max_filter_half
-    kern = H._bandpass_kernels(geo, dt)
-    ypad = jnp.pad(y, (Lmax - 1, Lmax + 1))
-    filt = np.asarray(jax.lax.conv_general_dilated(
-        ypad[None, None, :], kern[:, None, :],
-        window_strides=(1,), padding="VALID",
-        dimension_numbers=("NCW", "OIW", "NCW"),
-        precision=jax.lax.Precision.HIGHEST)[0])
-    groups = Z.make_groups(geo)
-    g = groups[-1]
-    y_len = geo.y_length
-    stot = -(-y_len // 128)
-    fp = np.pad(filt.astype(np.float32),
-                ((0, 0), (0, stot * 128 - y_len)))
-    filt_T = jnp.asarray(fp.reshape(-1, stot, 128).transpose(0, 2, 1))
-    ev, ccol = Z._zc_events_call(
-        filt_T[g.lo:g.hi], y_length=y_len, stot=stot, e_cap=g.e_cap,
-        c_row=g.c_row, interpret=True, rb=2)
-    # dense oracle: negative-going crossings of (s, -s, ds, -ds)
-    s = filt[g.lo:g.hi].astype(np.float32)
-    d = s[:, 1:] - s[:, :-1]
-    for t, (sig, n_eff) in enumerate(
-            [(s, y_len), (-s, y_len), (d, y_len - 1), (-d, y_len - 1)]):
-        i = np.arange(sig.shape[1] - 1)
-        m = (sig[:, :-1] > 0.0) & (sig[:, 1:] <= 0.0) & (i < n_eff - 1)
-        np.testing.assert_array_equal(
-            np.asarray(jnp.sum(ccol[:, t, :], axis=1), np.int64),
-            m.sum(axis=1))
-        # events are sorted ascending with inf-fill
-        evt = np.asarray(ev[:, :, t])
-        for b in range(evt.shape[0]):
-            n = int(m[b].sum())
-            assert np.all(np.diff(evt[b, :n]) > 0)
-            assert np.all(np.isinf(evt[b, n:]))
+    tpos = jnp.arange(geo.f0_length, dtype=jnp.float32) / 1000.0
+    cand, _, _ = H.candidates_stage(y, 0.0, tpos, geo=geo)
+    cand = H.dedup_candidates(cand)
+    r0, s0 = H.refine_stage(y, cand, tpos, geo=geo)
+    r1, s1 = refine_stage_triton(y, cand, tpos, geo=geo, interpret=True)
+    np.testing.assert_array_equal(np.asarray(r1) > 0, np.asarray(r0) > 0)
+    np.testing.assert_allclose(np.asarray(r1), np.asarray(r0), rtol=0,
+                               atol=2e-3)
+
+
+@pytest.mark.gpu
+def test_refine_kernel_compiled_matches_dense(gpu):
+    """The compiled kernel on the card == dense refine_stage (full f32
+    matmul precision).  F0 to the interpreted test's tolerance; scores
+    to 5e-3: a score is the reciprocal of a small mean harmonic
+    deviation, so f32 evaluation order and the card's libdevice cos/sin
+    (vs XLA's) move it by up to ~1.3e-3 relative (measured on an H100)."""
+    geo, y, cand, tpos = _deduped_inputs(22050, 120.0)
+    with jax.default_matmul_precision("highest"):
+        r0, s0 = H.refine_stage(y, cand, tpos, geo=geo)
+    r1, s1 = refine_stage_triton(y, cand, tpos, geo=geo)
+    r0, s0, r1, s1 = map(np.asarray, (r0, s0, r1, s1))
+    np.testing.assert_array_equal(r1 > 0, r0 > 0)
+    np.testing.assert_allclose(r1, r0, rtol=0, atol=2e-3)
+    np.testing.assert_allclose(s1, s0, rtol=5e-3)

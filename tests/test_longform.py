@@ -47,10 +47,10 @@ def test_long_harvest_60s_matches_unchunked():
     lh = LongHarvest(fs, chunk_ms=12000, halo_ms=1000)
     f0c, tpc = lh.compute(x)
     hk = HarvestKernel(fs, len(x))
-    f0u, tpu = hk.compute(jnp.asarray(x), dtype=jnp.float32)
+    f0u, tp_u = hk.compute(jnp.asarray(x), dtype=jnp.float32)
 
     assert len(f0c) == len(f0u) == hk.get_samples()
-    np.testing.assert_array_equal(tpc, tpu)
+    np.testing.assert_array_equal(tpc, tp_u)
     # voicing decisions must agree everywhere
     assert np.array_equal(f0c > 0, f0u > 0)
     both = (f0c > 0) & (f0u > 0)

@@ -92,7 +92,7 @@ def test_batch_harvest_sharded_matches_single():
     mesh = B.make_mesh(n_data=4, n_time=2)
 
     flat_sh = B.batch_harvest_device_stages(
-        jnp.asarray(x), geo=geo, mesh=mesh, chunk=16, use_zc=False)
+        jnp.asarray(x), geo=geo, mesh=mesh, chunk=16)
 
     flat_1 = H.harvest_device_stages_batch(
         jnp.asarray(x), jnp.zeros((4,), jnp.float32), geo, 16, 1)
@@ -114,8 +114,7 @@ def test_wav_to_wav_sharded():
     hk = H.HarvestKernel(fs, T)
     geo = hk.geo
     flat = np.asarray(B.batch_harvest_device_stages(
-        jnp.asarray(x), geo=geo, mesh=mesh, chunk=16,
-        use_zc=False)).astype(np.float64)
+        jnp.asarray(x), geo=geo, mesh=mesh, chunk=16)).astype(np.float64)
     f0s = []
     n_out = hk.get_samples()
     for i in range(4):
@@ -165,8 +164,7 @@ def test_batch_harvest_f0_device_contour_sharded():
     hk = H.HarvestKernel(fs, T)
     n_out = hk.get_samples()
     f0_sh = np.asarray(B.batch_harvest_f0(
-        jnp.asarray(x), geo=hk.geo, n_out=n_out, mesh=mesh, chunk=16,
-        use_zc=False))
+        jnp.asarray(x), geo=hk.geo, n_out=n_out, mesh=mesh, chunk=16))
     res = hk.compute_batch(x, contour_on="device", chunk=16)
     f0_1 = np.stack([r[0] for r in res])
     assert f0_sh.shape == (4, n_out)
@@ -214,63 +212,6 @@ def test_batch_wav_to_wav_one_dispatch():
     r1 = np.sqrt(np.mean(np.asarray(y1)[:, :n].reshape(4, -1, w) ** 2, -1))
     r2 = np.sqrt(np.mean(np.asarray(y2)[:, :n].reshape(4, -1, w) ** 2, -1))
     np.testing.assert_allclose(r2, r1, atol=0.02)
-
-
-def test_batch_harvest_sharded_zc_kernel_interpret():
-    """Pallas zc kernel UNDER shard_map (interpret mode on CPU) matches the
-    unsharded interpret run — the mesh path's stratified band interleave
-    must feed the kernel the same per-shard geometry (VERDICT r2 item 4:
-    Pallas-under-shard_map was previously exercised nowhere)."""
-    from worldtpu.analysis import harvest as H
-
-    f = load_fixture("t16")
-    fs = f.fs
-    T = len(f.x)
-    geo = H.HarvestGeometry(fs, T)
-    x = np.tile(np.asarray(f.x, np.float32), (2, 1))
-    x[1] *= 0.5
-    mesh = B.make_mesh(n_data=2, n_time=4)
-
-    flat_sh = B.batch_harvest_device_stages(
-        jnp.asarray(x), geo=geo, mesh=mesh, chunk=16, use_zc="interpret")
-
-    # dp-only mesh: the stratified interleave is the identity, so this is
-    # the unsharded kernel path in the same (interpret) mode
-    mesh1 = B.make_mesh(n_data=2, n_time=1,
-                        devices=jax.devices()[:2])
-    flat_1 = B.batch_harvest_device_stages(
-        jnp.asarray(x), geo=geo, mesh=mesh1, chunk=16, use_zc="interpret")
-    # the band-sharded kernel sees identical band rows (stratified
-    # interleave is a pure permutation); group caps differ but only pad
-    # masked work, so candidate values match bitwise
-    np.testing.assert_array_equal(np.asarray(flat_sh), np.asarray(flat_1))
-
-
-def test_batch_harvest_sharded_refine_kernel_interpret():
-    """Pallas REFINE kernel under shard_map (interpret mode on CPU, frame-
-    axis sharded) matches the single-chip fused stages running the same
-    kernel — the mesh path must run the same production kernels as
-    single-chip (VERDICT r3 item 4: it previously fell back to the dense
-    refine_stage under the mesh)."""
-    from worldtpu.analysis import harvest as H
-
-    f = load_fixture("t16")
-    fs = f.fs
-    T = len(f.x)
-    geo = H.HarvestGeometry(fs, T)
-    x = np.tile(np.asarray(f.x, np.float32), (2, 1))
-    x[1] *= 0.5
-    mesh = B.make_mesh(n_data=2, n_time=4)
-
-    flat_sh = B.batch_harvest_device_stages(
-        jnp.asarray(x), geo=geo, mesh=mesh, chunk=16, use_zc=False,
-        use_refine="interpret")
-
-    flat_1 = H.harvest_device_stages_batch_refine(
-        jnp.asarray(x), jnp.zeros((2,), jnp.float32), geo, 16, "interpret")
-    # frame-axis sharding slices the compacted candidate rows identically
-    # (compaction is per frame), so the kernels see the same inputs
-    np.testing.assert_array_equal(np.asarray(flat_sh), np.asarray(flat_1))
 
 
 def test_distributed_single_process():

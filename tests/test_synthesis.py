@@ -174,7 +174,7 @@ def test_max_pulses_overflow_detected():
     y, ovf3 = S.synthesis_frames_impl(
         jnp.asarray(f0s), spec, ap, noise, fs=fs, fft_size=fft_size,
         frame_period_s=fp_s, out_length=out_length, max_pulses=mp_est,
-        use_ola=False, return_overflow=True)
+        return_overflow=True)
     assert bool(ovf3)
     assert np.all(np.isfinite(np.asarray(y)))
 

@@ -86,18 +86,3 @@ def test_d4c_f32_matches_f64():
     assert np.all(np.isfinite(lo))
     # aperiodicity lives in (0, 1]; compare absolutely
     assert np.quantile(np.abs(lo - hi), 0.99) < 2e-2
-
-
-def test_kmath_poly_accuracy():
-    """ops.kmath fast_cos/fast_sin: <1e-6 absolute over the refine
-    kernel's full angle range (multi-cycle window phases)."""
-    from worldtpu.ops import kmath
-
-    x = np.linspace(-60.0, 60.0, 200001).astype(np.float32)
-    xj = jnp.asarray(x)
-    c, s = kmath.fast_cossin(xj)
-    xr = x.astype(np.float64)
-    assert np.abs(np.asarray(c) - np.cos(xr)).max() < 8e-6
-    assert np.abs(np.asarray(s) - np.sin(xr)).max() < 8e-6
-    assert np.abs(np.asarray(kmath.fast_cos(xj)) - np.cos(xr)).max() < 8e-6
-    assert np.abs(np.asarray(kmath.fast_sin(xj)) - np.sin(xr)).max() < 8e-6

@@ -1,19 +1,17 @@
 #!/usr/bin/env python
-"""Bisect the config-1 quality margin (VERDICT r3 item 6).
+"""Bisect the f32 F0 quality margin against the C++ reference.
 
-vuv_agreement vs the C++ dumps moved 1.0 (r2) -> 0.9983 (r3); candidates
-are the r3 default changes: CONV=matmul (bf16 band filters), the Pallas
-refine dedup (REFINE_DEDUP_TOL=0.004), and the fused zc sweeps.  Each
-combo runs in a SUBPROCESS (knobs bind at import, see worldtpu.flags) and
-reports F0 RMSE + vuv agreement vs the reference dump on the config-1
-utterance.
+Runs the production f32 Harvest on the bench's config-1 vowel under each
+combination of the quality-relevant choices — the band-filter form
+(CONV_MODE) and the shared refine dedup tolerance (REFINE_DEDUP_TOL, 0 =
+off) — and prints F0 RMSE and VUV agreement against the C++ dump for
+each.  One process: each combination patches the module settings and
+clears JAX's caches before it compiles, so one card serves every combo.
 
-Usage: python tools/bisect_quality.py            # run all combos
-       WORLDTPU_BISECT_COMBO=json python ...     # one combo (internal)
+Usage: python tools/bisect_quality.py
 """
 
 import json
-import os
 import pathlib
 import subprocess
 import sys
@@ -25,50 +23,49 @@ import numpy as np
 
 COMBOS = [
     ("default", {}),
-    ("conv=conv", {"WORLDTPU_CONV": "conv"}),
-    ("dedup=0", {"WORLDTPU_BISECT_DEDUP": "0"}),
-    ("zc=0", {"WORLDTPU_ZC": "0"}),
-    ("refine=0", {"WORLDTPU_REFINE": "0"}),
-    ("conv=conv,dedup=0", {"WORLDTPU_CONV": "conv",
-                           "WORLDTPU_BISECT_DEDUP": "0"}),
-    # stronger dedup (r5: dedup HELPS C++ fidelity — probe how far)
-    ("dedup=0.008", {"WORLDTPU_BISECT_DEDUP": "0.008"}),
-    ("dedup=0.012", {"WORLDTPU_BISECT_DEDUP": "0.012"}),
-    ("dedup=0.02", {"WORLDTPU_BISECT_DEDUP": "0.02"}),
+    ("conv=conv", {"CONV_MODE": "conv"}),
+    ("dedup=0", {"REFINE_DEDUP_TOL": 0.0}),
+    ("conv=conv,dedup=0", {"CONV_MODE": "conv", "REFINE_DEDUP_TOL": 0.0}),
+    # stronger dedup (it helps C++ fidelity up to a point — probe how far)
+    ("dedup=0.008", {"REFINE_DEDUP_TOL": 0.008}),
+    ("dedup=0.012", {"REFINE_DEDUP_TOL": 0.012}),
+    ("dedup=0.02", {"REFINE_DEDUP_TOL": 0.02}),
 ]
 
 
-def run_one(wav_path, f0ref_path):
+def run_one(x, fs, ref, settings):
     import jax
     import jax.numpy as jnp
     from worldtpu.analysis import harvest as H
-    from worldtpu.analysis.harvest import HarvestKernel
-    from worldtpu.io import wav as wav_io
 
-    dd = os.environ.get("WORLDTPU_BISECT_DEDUP")
-    if dd is not None:
-        H.REFINE_DEDUP_TOL = float(dd)
-    x, fs, _ = wav_io.wavread(wav_path)
-    hk = HarvestKernel(fs, len(x), f0_floor=40.0)
-    f0, _ = hk.compute(jnp.asarray(x, jnp.float32), dtype=jnp.float32)
+    saved = {k: getattr(H, k) for k in settings}
+    try:
+        for k, v in settings.items():
+            setattr(H, k, v)
+        jax.clear_caches()
+        hk = H.HarvestKernel(fs, len(x), f0_floor=40.0)
+        f0, _ = hk.compute(jnp.asarray(x, jnp.float32), dtype=jnp.float32)
+    finally:
+        for k, v in saved.items():
+            setattr(H, k, v)
+        jax.clear_caches()
     f0 = np.asarray(f0)
-    ref = np.load(f0ref_path)
     n = min(len(f0), len(ref))
-    f0, ref = f0[:n], ref[:n]
-    both = (f0 > 0) & (ref > 0)
-    rmse = float(np.sqrt(np.mean((f0[both] - ref[both]) ** 2))) if both.any() else 0.0
-    vuv = float(np.mean((f0 > 0) == (ref > 0)))
-    print(json.dumps({"f0_rmse_hz": round(rmse, 6),
-                      "vuv_agreement": round(vuv, 6),
-                      "n_disagree": int(np.sum((f0 > 0) != (ref > 0)))}))
+    f0, r = f0[:n], ref[:n]
+    both = (f0 > 0) & (r > 0)
+    rmse = float(np.sqrt(np.mean((f0[both] - r[both]) ** 2))) \
+        if both.any() else 0.0
+    return {"f0_rmse_hz": round(rmse, 6),
+            "vuv_agreement": round(float(np.mean((f0 > 0) == (r > 0))), 6),
+            "n_disagree": int(np.sum((f0 > 0) != (r > 0)))}
 
 
 def main():
-    work = pathlib.Path(tempfile.mkdtemp(prefix="worldtpu_bisect_"))
     from bench import build_reference, synth_utterance
     from worldtpu.io import params as params_io
     from worldtpu.io import wav as wav_io
 
+    work = pathlib.Path(tempfile.mkdtemp(prefix="worldtpu_bisect_"))
     fs = 16000
     x = synth_utterance(fs, 3.0, 160.0, 0)
     wav_path = work / "u16.wav"
@@ -83,25 +80,11 @@ def main():
                    check=True, capture_output=True, timeout=600,
                    cwd=str(work))
     f0_ref, _, _ = params_io.read_f0(work / "q.f0")
-    f0ref_path = work / "f0_ref.npy"
-    np.save(f0ref_path, np.asarray(f0_ref))
-
-    for name, env in COMBOS:
-        e = dict(os.environ)
-        e.update(env)
-        e["WORLDTPU_BISECT_COMBO"] = json.dumps([str(wav_path),
-                                                 str(f0ref_path)])
-        r = subprocess.run([sys.executable, __file__], env=e,
-                           capture_output=True, text=True, timeout=1200)
-        line = (r.stdout.strip().splitlines() or ["<no output>"])[-1]
-        print(f"{name:24s} {line}")
-        if r.returncode != 0:
-            print(r.stderr[-500:])
+    ref = np.asarray(f0_ref)
+    for name, settings in COMBOS:
+        print(f"{name:24s} {json.dumps(run_one(x, fs, ref, settings))}",
+              flush=True)
 
 
 if __name__ == "__main__":
-    combo = os.environ.get("WORLDTPU_BISECT_COMBO")
-    if combo:
-        run_one(*json.loads(combo))
-    else:
-        main()
+    main()

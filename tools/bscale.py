@@ -2,7 +2,8 @@
 """Batch-occupancy curve: config-5 pipeline throughput at B=8/16/32/64.
 
 One jitted batch_wav_to_wav per B (fresh geometry, same 3 s utterances
-tiled), amortized walls with host-fetch sync.  Prints one JSON line per B:
+tiled), amortized walls (`reps` dispatches share one block_until_ready).
+Prints one JSON line per B:
     {"B": n, "wall_ms_per_batch": w, "rtf": audio_seconds/wall}
 
 Usage: python tools/bscale.py [reps] [Bs...]
@@ -25,11 +26,6 @@ from worldtpu.analysis.harvest import HarvestKernel
 from worldtpu.analysis.cheaptrick import CheapTrickKernel
 from worldtpu.synthesis import synthesis as S
 from worldtpu.parallel import batch as B
-
-
-def _sync(out):
-    for lf in jax.tree_util.tree_leaves(out):
-        np.asarray(jax.device_get(jnp.ravel(lf)[:1]))
 
 
 def main():
@@ -76,7 +72,7 @@ def main():
             for _ in range(2):
                 t0 = time.time()
                 outs = [run(xd) for xd in xds]
-                _sync(outs[-1])
+                jax.block_until_ready(outs)
                 best = min(best, (time.time() - t0) / reps)
             print(json.dumps({
                 "B": n, "wall_ms_per_batch": round(best * 1e3, 1),

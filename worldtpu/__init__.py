@@ -1,9 +1,10 @@
-"""worldtpu — a TPU-native (JAX/XLA/Pallas) rebuild of the WORLD vocoder.
+"""worldtpu — a JAX (XLA + a Pallas/Triton GPU kernel) rebuild of the
+WORLD vocoder.
 
 Re-designed from the capabilities of yukara-ikemiya/world-class (C++/OpenMP):
 the per-frame OpenMP loops of the reference become batched tensor programs
-over frames/bands/pulses on a single chip, and pjit/shard_map sharding over
-utterance batches and the frame axis across chips.
+over frames/bands/pulses on one device, and shard_map sharding over
+utterance batches and the frame axis across devices.
 
 Public API mirrors the reference classes (see api.py):
     Harvest, CheapTrick, D4C, Synthesis + codec functions.

@@ -110,22 +110,8 @@ def _select_best(ref_f0, cand_rows, allowed_range):
 _EXTEND_CHUNK = 64
 
 
-def _use_extend_kernel_default():
-    """The XLA while_loop walk is the default everywhere: the Pallas
-    micro-loop kernel (ops/extend_kernel.py) was built on the theory that
-    the while_loop's ~0.17 ms/step floor dominates, but measured SLOWER on
-    device in every layout tried (27-29 vs 19.8 ms/batch for fix_step3 —
-    walks-on-sublanes, walks-on-lanes, step-chunked; the slab
-    materialization + per-chunk dispatch overhead exceeds the loop
-    savings).  It remains available for A/B via WORLDTPU_EXTEND=1."""
-    from worldtpu.flags import FLAGS as _F
-    if _F.extend is not None:
-        return _F.extend
-    return False
-
-
 def _extend_both(ch, ss, st, ed, n_sec, candidates, scores,
-                 allowed_range, s_max, grid_ms=1, use_kernel=None):
+                 allowed_range, s_max, grid_ms=1):
     """Parallel extendF0 (:371-403): both directions at once, compact
     section chunks, early-exit walk.
 
@@ -150,8 +136,6 @@ def _extend_both(ch, ss, st, ed, n_sec, candidates, scores,
 
     Returns (ch, ss with extensions written, st2, ed2 shifted origins)."""
     F = candidates.shape[0]
-    if use_kernel is None:
-        use_kernel = _use_extend_kernel_default()
     # the 100-frame growth limit and 4-consecutive-miss stop are TIME
     # semantics on the 1 ms reference grid; a coarser grid scales both
     ext_lim = max(1, round(100 / grid_ms))
@@ -169,14 +153,6 @@ def _extend_both(ch, ss, st, ed, n_sec, candidates, scores,
     S = candidates.shape[1]
     # candidates and scores ride ONE gather / slab row
     packed = jnp.concatenate([candidates, scores], axis=1)  # [F, 2S]
-    if S > 128:
-        use_kernel = False                  # kernel layout needs S <= 128
-    if use_kernel:
-        packed256 = jnp.zeros((F, 256), jnp.float32)
-        packed256 = packed256.at[:, :S].set(
-            candidates.astype(jnp.float32))
-        packed256 = packed256.at[:, 128:128 + S].set(
-            scores.astype(jnp.float32))
 
     def chunk_cond(c):
         return c[0] * CK < n_sec
@@ -200,59 +176,12 @@ def _extend_both(ch, ss, st, ed, n_sec, candidates, scores,
         tmp0 = jnp.concatenate([ch_s, ch_s])[
             jnp.arange(2 * CK), jnp.clip(origin, 0, F - 1)]
 
-        if use_kernel:
-            # sequential walk in a Pallas micro-loop (~µs/step) instead of
-            # an XLA while_loop (~0.17 ms/step floor, r5 device bisect);
-            # accepted (val, score) prefixes write back as contiguous
-            # per-walk column spans
-            from worldtpu.ops.extend_kernel import extend_walk
-            E = ext_lim + 1
-            vals, scs, n_on, so = extend_walk(
-                packed256, origin, shift, live2, distance, tmp0,
-                ext_lim=ext_lim, miss_lim=miss_lim,
-                allowed_range=allowed_range,
-                interpret=(use_kernel == "interpret"))
-            dt = ch_s.dtype
-            vf, sf = vals[:CK, :E].astype(dt), scs[:CK, :E].astype(dt)
-            vb = vals[CK:, :E][:, ::-1].astype(dt)
-            sb = scs[CK:, :E][:, ::-1].astype(dt)
-            nf, nb = n_on[:CK], n_on[CK:]
-            te = jnp.arange(E)
-            chp = jnp.pad(ch_s, ((0, 0), (E, E)))
-            ssp = jnp.pad(ss_s, ((0, 0), (E, E)))
-
-            def wb(rowc, rows_, v, s, a, mask):
-                old_c = jax.lax.dynamic_slice(rowc, (a,), (E,))
-                old_s = jax.lax.dynamic_slice(rows_, (a,), (E,))
-                rowc = jax.lax.dynamic_update_slice(
-                    rowc, jnp.where(mask, v, old_c), (a,))
-                rows_ = jax.lax.dynamic_update_slice(
-                    rows_, jnp.where(mask, s, old_s), (a,))
-                return rowc, rows_
-
-            # fwd spans: columns origin+1 .. origin+n (padded start +E)
-            chp, ssp = jax.vmap(wb)(chp, ssp, vf, sf, ed_c + 1 + E,
-                                    te[None, :] < nf[:, None])
-            # bwd spans: columns origin-n .. origin-1, reversed layout
-            # (padded start = origin); position u holds step t = E-1-u
-            chp, ssp = jax.vmap(wb)(chp, ssp, vb, sb, st_c,
-                                    te[None, :] >= (E - nb)[:, None])
-            ch_s = chp[:, E:E + F + 1]
-            ss_s = ssp[:, E:E + F + 1]
-            ch = jax.lax.dynamic_update_slice(ch, ch_s,
-                                              (base, jnp.int32(0)))
-            ss = jax.lax.dynamic_update_slice(ss, ss_s,
-                                              (base, jnp.int32(0)))
-            ed2 = jax.lax.dynamic_update_slice(ed2, so[:CK], (base,))
-            st2 = jax.lax.dynamic_update_slice(st2, so[CK:], (base,))
-            return (c + 1, ch, ss, st2, ed2)
-
         # Up to ext_lim+1 genuinely-sequential steps (the running reference
         # F0 updates as values are accepted).  Under vmap the while_loop
-        # runs the BATCH-max trip count, and its per-iteration fixed cost
-        # dominates the contour stage (r5 device profile: fix_step3 22.8 of
-        # the 26 ms contour wall at U=1) — so each iteration performs U
-        # exact sub-steps and the early-exit check runs every U steps.
+        # runs the BATCH-max trip count, and each iteration has a fixed
+        # cost (on a GPU a device->host read of the predicate) — so each
+        # iteration performs U exact sub-steps and the early-exit check
+        # runs every U steps.
         U = 4
 
         def walk_cond(w):
@@ -309,8 +238,7 @@ def _extend_both(ch, ss, st, ed, n_sec, candidates, scores,
     return (ch[:s_max], ss[:s_max], st2[:s_max], ed2[:s_max])
 
 
-def fix_step3(f0_step2, candidates, scores, allowed_range=0.18, grid_ms=1,
-              use_extend_kernel=None):
+def fix_step3(f0_step2, candidates, scores, allowed_range=0.18, grid_ms=1):
     """Extend voiced sections by contour continuity, then merge
     (reference :560-585 + extend/merge :427-536)."""
     F = f0_step2.shape[0]
@@ -342,8 +270,7 @@ def fix_step3(f0_step2, candidates, scores, allowed_range=0.18, grid_ms=1,
 
     # ---- extend (:427-458) ----
     ch, ss, st2, ed2 = _extend_both(ch, ss, st, ed, n_sec, candidates,
-                                    scores, allowed_range, s_max, grid_ms,
-                                    use_kernel=use_extend_kernel)
+                                    scores, allowed_range, s_max, grid_ms)
 
     # ---- extendSub: mean-based section filter (:440-458) ----
     # NOTE: mean_f0 accumulates WITHOUT reset between sections
@@ -529,7 +456,7 @@ def smooth_f0_contour(f0, s_max=None):
         live = (base + rk) < n_sec
         # edge-held per-section signals x[clip(j, st, ed)], gather-free:
         # the held regions are per-section constants, the middle is the
-        # shared padded signal (a clipped gather costs ~40 ms on TPU)
+        # shared padded signal (no [CK, n] clipped gather)
         edge_lo = padded[jnp.clip(st_c, 0, n - 1)]
         edge_hi = padded[jnp.clip(ed_c, 0, n - 1)]
         chs = jnp.where(jidx[None, :] < st_c[:, None], edge_lo[:, None],

@@ -385,14 +385,13 @@ def d4c_frames(x, f0, temporal_positions, *, fs, fft_size_out, threshold=0.85,
         lo, hi = cum_b[..., Kd - boundary - 2], cum_b[..., Kd - 1]
     else:
         # f32 path: cum[Kd-b-2] of the ascending sort is total minus the
-        # top (boundary+1) values.  approx_max_k rides the TPU's native
-        # partial-reduce (~3x faster than the sort-lowered top_k).  The
-        # recall target is pinned: with aggregate_to_topk (default) the
-        # candidate pool is re-ranked exactly, and at k=31 of 1025 bins
-        # 0.95 recovers the exact top-set sum on adversarial spectra
-        # (60-decade dynamic range, k-way near-ties) — asserted by
-        # tests/test_d4c.py::test_approx_max_k_exact_top_set and gated on
-        # the real chip by bench.py's kernel-parity check
+        # top (boundary+1) values.  On CPU and GPU approx_max_k lowers to
+        # an exact top_k; the recall target is pinned anyway: with
+        # aggregate_to_topk (default) the candidate pool is re-ranked
+        # exactly, and at k=31 of 1025 bins 0.95 recovers the exact
+        # top-set sum on adversarial spectra (60-decade dynamic range,
+        # k-way near-ties) — asserted by
+        # tests/test_d4c.py::test_approx_max_k_exact_top_set
         hi = jnp.sum(ps_b, axis=-1)
         top, _ = jax.lax.approx_max_k(
             ps_b.reshape(-1, ps_b.shape[-1]), boundary + 1,

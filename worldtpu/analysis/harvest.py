@@ -72,17 +72,19 @@ def _cos_table_np():
     return t
 
 
-def _main_window_values(t2, use_cos_table, dt):
+def _main_window_values(t2, use_cos_table, dt, lookup=None):
     """Blackman-ish window from angle t2 = 2*pi*tmp/window_length_in_time.
 
     Exact-cos (reference getMainWindow :769-774) or the table variant
     (:775-787): dindex = fmod(2*pi*(tmp/wlt + 1), 2*pi)/2*pi*num_div,
-    dindex2 = fmod(2*dindex, num_div*4), rounded lookups."""
+    dindex2 = fmod(2*dindex, num_div*4), rounded lookups.  ``lookup``
+    reads the table (default: a device copy of ``_cos_table_np``)."""
     if not use_cos_table:
         return 0.42 + 0.5 * jnp.cos(t2) + 0.08 * jnp.cos(2.0 * t2)
     num_div = _NUM_COS_DIV * 4
     two_pi = 2.0 * C.PI
-    tab = jnp.asarray(_cos_table_np(), dt)
+    if lookup is None:
+        lookup = jnp.asarray(_cos_table_np(), dt).__getitem__
     tmp2 = t2 + two_pi  # 2*pi*(tmp/wlt + 1)
     dindex = jnp.mod(tmp2, two_pi) / two_pi * num_div
     dindex2 = jnp.mod(dindex * 2.0, float(num_div))
@@ -90,7 +92,7 @@ def _main_window_values(t2, use_cos_table, dt):
                    jnp.ceil(dindex - 0.5)).astype(jnp.int32)
     i2 = jnp.where(dindex2 > 0, jnp.floor(dindex2 + 0.5),
                    jnp.ceil(dindex2 - 0.5)).astype(jnp.int32)
-    return 0.42 + 0.5 * tab[i1] + 0.08 * tab[i2]
+    return 0.42 + 0.5 * lookup(i1) + 0.08 * lookup(i2)
 
 
 def _matlab_round(x):
@@ -354,8 +356,8 @@ def _bank_from_kern_np(kern):
     with T taps, c1 < 128*W, q < 128.  Then for blocks
     Bm[p, c1] = ypad[128p + c1] the product Bm @ K' yields every output
     sample out[128p+q, b] = sum_t ypad[128p+q+t] kern[b, t] exactly — the
-    same correlation conv_general_dilated computes, but as ONE large MXU
-    matmul (the 1-input-channel conv lowers ~100x off the MXU roofline).
+    same correlation conv_general_dilated computes, but as ONE large
+    matmul instead of a 1-input-channel convolution.
     Returns (W, np K' [128W, 128*Nbg]) — numpy, NOT device_put: built at
     trace time (a device_put here would cache a tracer that leaks into
     later traces); embeds as a constant."""
@@ -503,18 +505,32 @@ def _overlap_candidates(base):
     return jnp.stack(layers, axis=1).reshape(F, 7 * cb)
 
 
-def _use_zc_kernel_default():
-    """The Pallas event kernel is the production path on TPU; the jnp
-    scatter path remains for CPU (tests) and as a fallback.  Env override:
-    WORLDTPU_ZC=0|1|interpret (parsed by worldtpu.flags)."""
-    env = FLAGS.zc
-    if env is not None:
-        return env
-    return jax.default_backend() == "tpu"
+def _filter_bank(ym, geo):
+    """f32 band filter bank [Nb, y_length]: convolutions grouped by kernel
+    width (mathematically identical to the reference's circular-FFT route:
+    the FFT buffer's zero padding makes the circular convolution linear).
+
+    The band signals only seed zero-crossing CANDIDATES (refinement
+    re-estimates F0 from the raw waveform), so the filter runs at
+    CONV_MM_PRECISION (default: the backend's fast f32 matmul)."""
+    dt = ym.dtype
+    parts = []
+    for lo, hi, Lg in _conv_groups(geo):
+        if CONV_MODE == "matmul":
+            parts.append(_band_filter_matmul(ym, geo, dt, lo, hi, Lg))
+        else:
+            kern = _bandpass_kernels(geo, dt, lo, hi, Lg)
+            ypad = jnp.pad(ym, (Lg - 1, Lg + 1))
+            parts.append(jax.lax.conv_general_dilated(
+                ypad[None, None, :], kern[:, None, :],
+                window_strides=(1,), padding="VALID",
+                dimension_numbers=("NCW", "OIW", "NCW"),
+                precision=jax.lax.Precision.DEFAULT)[0])
+    return jnp.concatenate(parts, axis=0)
 
 
-@functools.partial(jax.jit, static_argnames=("geo", "use_zc"))
-def candidates_stage(y, mean_y, tpos, *, geo, use_zc=None):
+@functools.partial(jax.jit, static_argnames=("geo",))
+def candidates_stage(y, mean_y, tpos, *, geo):
     """Stages B+C: decimated signal -> overlapped candidates [F, S]."""
     dt = y.dtype
     ym = y - mean_y
@@ -535,38 +551,10 @@ def candidates_stage(y, mean_y, tpos, *, geo, use_zc=None):
                 args[0], geo, tpos),
             (bounds, halves), batch_size=16)
     else:
-        # production path: MXU convolutions for the filter bank, grouped by
-        # kernel width (mathematically identical to the circular route: the
-        # FFT buffer's zero padding makes the circular convolution linear)
-        parts = []
-        # bf16 (DEFAULT) is 3.8x cheaper than HIGHEST on the MXU for these
-        # O(1)-valued 100-800 tap kernels.  The band signals only seed
-        # zero-crossing CANDIDATES (refinement re-estimates F0 from the
-        # raw waveform), so bf16 jitter costs 0.007 Hz end-to-end F0 RMSE
-        # (0.024 -> 0.032 Hz, gated in bench) for +17% pipeline throughput
-        for lo, hi, Lg in _conv_groups(geo):
-            if CONV_MODE == "matmul":
-                parts.append(_band_filter_matmul(ym, geo, dt, lo, hi, Lg))
-            else:
-                kern = _bandpass_kernels(geo, dt, lo, hi, Lg)
-                ypad = jnp.pad(ym, (Lg - 1, Lg + 1))
-                parts.append(jax.lax.conv_general_dilated(
-                    ypad[None, None, :], kern[:, None, :],
-                    window_strides=(1,), padding="VALID",
-                    dimension_numbers=("NCW", "OIW", "NCW"),
-                    precision=jax.lax.Precision.DEFAULT)[0])
-        filt = jnp.concatenate(parts, axis=0)         # [Nb, y_len]
-        if use_zc is None:
-            use_zc = _use_zc_kernel_default()
-        if use_zc:
-            from worldtpu.ops import zc_kernel
-            raw = zc_kernel.band_candidates_pallas(
-                filt, geo, interpret=(use_zc == "interpret"))
-        else:
-            bounds = jnp.asarray(geo.boundary_f0, dt)
-            raw = jax.vmap(
-                lambda fi, b: _band_candidates(fi, b, geo, tpos))(
-                    filt, bounds)
+        filt = _filter_bank(ym, geo)                  # [Nb, y_len]
+        bounds = jnp.asarray(geo.boundary_f0, dt)
+        raw = jax.vmap(
+            lambda fi, b: _band_candidates(fi, b, geo, tpos))(filt, bounds)
     base = _detect_candidates(raw, geo)
     return _overlap_candidates(base), raw, base
 
@@ -574,6 +562,65 @@ def candidates_stage(y, mean_y, tpos, *, geo, use_zc=None):
 # ---------------------------------------------------------------------------
 # stage D: instantaneous-frequency refinement
 # ---------------------------------------------------------------------------
+
+def refine_pair_params(f0s, geo):
+    """Per-pair refine geometry from (dummy-filled) candidates ``f0s`` of
+    any shape [...]: half window ``hw``, window length in seconds ``wlt``,
+    per-pair FFT size ``fft_p``, harmonic count ``n_harm``, harmonic bins
+    ``idx_h`` [..., 6] and their global 2^max-grid bins ``gbin`` [..., 6]
+    (reference getMeanF0/fixF0 sizing, harvest.cpp:844-905).  Shared by
+    every refine implementation so they agree on integer geometry."""
+    dt = f0s.dtype
+    fs_a = geo.actual_fs
+    hw = (1.5 * fs_a / f0s + 1.0).astype(jnp.int32)
+    w_len = 2 * hw + 1
+    fft_index = 2 + (jnp.log(w_len.astype(dt)) / C.LOG2).astype(jnp.int32)
+    fft_p = jnp.left_shift(1, fft_index)
+    ratio = geo.refine_fft // fft_p                    # global-bin stride
+    wlt = w_len.astype(dt) / fs_a
+    n_harm = jnp.minimum((fs_a / 2.0 / f0s).astype(jnp.int32), 6)
+    h = jnp.arange(6)
+    idx_h = _matlab_round(
+        f0s[..., None] * fft_p[..., None].astype(dt) / fs_a
+        * (h + 1.0))                                   # [..., 6]
+    gbin = jnp.clip(idx_h * ratio[..., None], 0, geo.refine_fft // 2)
+    return hw, wlt, fft_p, n_harm, idx_h, gbin
+
+
+def refine_finish(Sm_re, Sm_im, Sd_re, Sd_im, f0s, active, fft_p, n_harm,
+                  idx_h, geo):
+    """Instantaneous-frequency F0 and score from the harmonic-bin spectra
+    [..., 6] of the main and differentiated windows (reference
+    harvest.cpp:907-939), with the reference's floor/ceil/score gates."""
+    dt = Sm_re.dtype
+    fs_a = geo.actual_fs
+    h = jnp.arange(6)
+    power = Sm_re ** 2 + Sm_im ** 2
+    num_i = Sm_re * Sd_im - Sm_im * Sd_re
+    base_freq = idx_h.astype(dt) * fs_a / fft_p[..., None].astype(dt)
+    instf = jnp.where(power == 0.0, 0.0,
+                      base_freq + num_i / power * fs_a / (2.0 * C.PI))
+    amp = jnp.sqrt(power)
+    hmask = (h < n_harm[..., None]).astype(dt)
+
+    numer = jnp.sum(amp * instf * hmask, axis=-1)
+    denom = jnp.sum(amp * (h + 1.0) * hmask, axis=-1)
+    refined = numer / (denom + C.MY_SAFE_GUARD_MINIMUM)
+    dev = jnp.sum(jnp.abs(instf / (h + 1.0) - f0s[..., None])
+                  / f0s[..., None] * hmask, axis=-1)
+    score = 1.0 / (dev / jnp.maximum(n_harm, 1)
+                   + C.MY_SAFE_GUARD_MINIMUM)
+
+    bad = ((refined < geo.f0_floor) | (refined > geo.f0_ceil)
+           | (score < 2.5) | ~active)
+    refined = jnp.where(bad, 0.0, refined)
+    score = jnp.where(bad, 0.0, score)
+    return refined, score
+
+
+#: dummy F0 of inactive refine slots (keeps the pair math finite)
+REFINE_DUMMY_F0 = 100.0
+
 
 def _refine_chunk(y, cand, pos, geo):
     """Refine one chunk of frames; cand [Fc, S], pos [Fc].
@@ -584,10 +631,9 @@ def _refine_chunk(y, cand, pos, geo):
     and pair windows are built in segment coordinates m = j + (hwmax - hw).
     The induced time shift multiplies both spectra by the same unit phase,
     which cancels exactly in |S_main|^2 and Im(conj(S_main) S_diff) — so no
-    correction is needed.  This removes the [pairs, W] waveform gather that
-    otherwise dominates (~25x the rest of the stage on TPU).  Spectra come
-    from one MXU matmul-DFT against the shared [W, K] global-grid basis
-    (bin k*stride of the 2^max FFT == bin k of each pair's own FFT).
+    correction is needed.  This removes a [pairs, W] waveform gather.
+    Spectra come from a direct 6-bin DFT on the global 2^max grid (bin
+    k*stride of the 2^max FFT == bin k of each pair's own FFT).
     The float64 path keeps the literal per-pair layout + batched rfft for
     bitwise golden parity."""
     dt = y.dtype
@@ -596,28 +642,17 @@ def _refine_chunk(y, cand, pos, geo):
     f0 = cand.reshape(P)
     pp = jnp.broadcast_to(pos[:, None], (Fc, S)).reshape(P)
     active = f0 > 0.0
-    f0s = jnp.where(active, f0, 100.0)  # dummy to keep math finite
+    f0s = jnp.where(active, f0, REFINE_DUMMY_F0)
 
     fs_a = geo.actual_fs
-    hw = (1.5 * fs_a / f0s + 1.0).astype(jnp.int32)
-    w_len = 2 * hw + 1
-    fft_index = 2 + (jnp.log(w_len.astype(dt)) / C.LOG2).astype(jnp.int32)
-    fft_p = jnp.left_shift(1, fft_index)
-    ratio = geo.refine_fft // fft_p                    # global-bin stride
-
+    hw, wlt, fft_p, n_harm, idx_h, gbin = refine_pair_params(f0s, geo)
     hwmax = geo.max_half_window
     Wmax = 2 * hwmax + 1
-    wlt = w_len.astype(dt) / fs_a
-    n_harm = jnp.minimum((fs_a / 2.0 / f0s).astype(jnp.int32), 6)
-    h = jnp.arange(6)
-    idx_h = _matlab_round(
-        f0s[:, None] * fft_p[:, None].astype(dt) / fs_a
-        * (h[None, :] + 1.0))                          # [P, 6]
-    gbin = jnp.clip(idx_h * ratio[:, None], 0, geo.refine_fft // 2)
-    pr = jnp.arange(P)[:, None]
 
     if dt == jnp.float64:
         # ---- parity path: literal per-pair windows + batched rfft ----
+        w_len = 2 * hw + 1
+        pr = jnp.arange(P)[:, None]
         j = jnp.arange(Wmax)
         in_w = j[None, :] < w_len[:, None]
         base_time0 = -hw.astype(dt) / fs_a
@@ -639,12 +674,18 @@ def _refine_chunk(y, cand, pos, geo):
         Sm_re, Sm_im = Sm.real[pr, gbin], Sm.imag[pr, gbin]
         Sd_re, Sd_im = Sd.real[pr, gbin], Sd.imag[pr, gbin]
     else:
-        # ---- production path: frame segments + matmul-DFT ----
+        # ---- production path: frame segments + direct harmonic DFT ----
         m = jnp.arange(Wmax)
         origin = _matlab_round(pos * fs_a + 0.001)     # [Fc]
         q = origin[:, None] - 1 - hwmax + m[None, :]   # y index per (f, m)
         ys = y[jnp.clip(q, 0, geo.y_length - 1)]       # [Fc, Wseg]
-        tmp_f = q.astype(dt) / fs_a - pos[:, None]     # frame-level times
+        # sample times relative to the frame, from the small offset m plus
+        # one per-frame shift: q / fs_a - pos would round every sample's
+        # time at the scale of the absolute position (an f32 ulp at 4 s is
+        # 5e-7 s), and that per-sample noise reaches the scores through the
+        # differentiated window
+        shift = (origin - 1 - hwmax).astype(dt) - pos * fs_a   # [Fc]
+        tmp_f = (m[None, :].astype(dt) + shift[:, None]) / fs_a
 
         hw2 = hw.reshape(Fc, S)
         in_w = jnp.abs(m[None, None, :] - hwmax) <= hw2[:, :, None]
@@ -659,11 +700,10 @@ def _refine_chunk(y, cand, pos, geo):
         diff = (ys[:, None, :] * dw).reshape(P, Wmax)
 
         # direct 6-bin DFT: only the <=6 harmonic bins per pair are ever
-        # read, so evaluating them directly is ~300x less FLOPs and HBM
+        # read, so evaluating them directly is ~300x less FLOPs and memory
         # traffic than a full [2P, W] @ [W, 2K] matmul-DFT whose [2P, 2K]
-        # spectra round-trip through HBM (measured: that materialization
-        # dominated the refine stage).  The sample index is split
-        # m = 128q + r so the twiddles factor into [P,6,128] inner and
+        # spectra round-trip through device memory.  The sample index is
+        # split m = 128q + r so the twiddles factor into [P,6,128] inner and
         # [P,6,Q] outer tables — ~30x fewer transcendentals than a full
         # [P,6,W] cos/sin grid, with the phase reduced exactly in int32
         # ((bin*m) mod N < 2^31) so f32 trig sees arguments in [0, 2pi).
@@ -692,44 +732,28 @@ def _refine_chunk(y, cand, pos, geo):
         Sm_im = -jnp.sum(Am * so + Bm * co, -1)
         Sd_re = jnp.sum(Ad * co - Bd * so, -1)
         Sd_im = -jnp.sum(Ad * so + Bd * co, -1)
-        power = Sm_re ** 2 + Sm_im ** 2
-        num_i = Sm_re * Sd_im - Sm_im * Sd_re
 
-    if dt == jnp.float64:
-        power = Sm_re ** 2 + Sm_im ** 2
-        num_i = Sm_re * Sd_im - Sm_im * Sd_re
-
-    base_freq = idx_h.astype(dt) * fs_a / fft_p[:, None].astype(dt)
-    instf = jnp.where(power == 0.0, 0.0,
-                      base_freq + num_i / power * fs_a / (2.0 * C.PI))
-    amp = jnp.sqrt(power)
-    hmask = (h[None, :] < n_harm[:, None]).astype(dt)
-
-    numer = jnp.sum(amp * instf * hmask, axis=1)
-    denom = jnp.sum(amp * (h[None, :] + 1.0) * hmask, axis=1)
-    refined = numer / (denom + C.MY_SAFE_GUARD_MINIMUM)
-    dev = jnp.sum(jnp.abs(instf / (h[None, :] + 1.0) - f0s[:, None])
-                  / f0s[:, None] * hmask, axis=1)
-    score = 1.0 / (dev / jnp.maximum(n_harm, 1)
-                   + C.MY_SAFE_GUARD_MINIMUM)
-
-    bad = ((refined < geo.f0_floor) | (refined > geo.f0_ceil)
-           | (score < 2.5) | ~active)
-    refined = jnp.where(bad, 0.0, refined)
-    score = jnp.where(bad, 0.0, score)
+    refined, score = refine_finish(Sm_re, Sm_im, Sd_re, Sd_im, f0s, active,
+                                   fft_p, n_harm, idx_h, geo)
     return refined.reshape(Fc, S), score.reshape(Fc, S)
+
+
+def refine_cap(S):
+    """Refined-slot capacity per frame: only ~20 of the S=7*Cb candidate
+    slots are ever active (observed max ~37 of 126), so the leading
+    max(32, S//2) compacted slots are refined; refinement of a zero slot
+    is the identity (0, 0)."""
+    return min(S, max(32, S // 2))
 
 
 @functools.partial(jax.jit, static_argnames=("geo", "chunk"))
 def refine_stage(y, cand, tpos, *, geo, chunk=16):
     """Stage D over all frames in memory-bounded chunks.
 
-    Active-slot compaction: only ~20 of the S=7*Cb candidate slots per frame
-    are nonzero (observed max ~37 of 126); sorting active slots first and
-    refining the leading S//2 halves the window/matmul work exactly —
-    refinement of a zero slot is the identity (0, 0)."""
+    Active slots are compacted to the front and the leading
+    ``refine_cap(S)`` are refined (see refine_cap)."""
     F, S = cand.shape
-    cap = min(S, max(32, S // 2))
+    cap = refine_cap(S)
     rows = jnp.arange(F)[:, None]
     cols = jnp.broadcast_to(jnp.arange(S)[None, :], (F, S))
     active = cand > 0.0
@@ -796,24 +820,70 @@ def remove_unreliable_stage(cand, score):
 # fused device pipeline (one dispatch, one download)
 # ---------------------------------------------------------------------------
 
-def _use_refine_kernel_default():
-    """The Pallas adaptive refine kernel is the production path on TPU; the
-    dense jnp chunked path remains for CPU (tests) and f64 parity.  Env
-    override: WORLDTPU_REFINE=0|1|interpret."""
-    env = FLAGS.refine
-    if env is not None:
-        return env
-    return jax.default_backend() == "tpu"
-
-
-#: Production near-duplicate candidate tolerance for the Pallas refine
-#: (see refine_kernel.refine_stage_pallas dedup rationale); 0 disables.
+#: Production near-duplicate candidate tolerance of the f32 refine
+#: pre-pass (see dedup_candidates).  Stronger dedup (0.008-0.02) made the
+#: vowel F0 RMSE ~5x worse against the C++ reference.
 REFINE_DEDUP_TOL = 0.004
 
-#: Pallas refine fused-group-chain count / frames per grid cell
-#: (refine_stage_pallas gp / gf) — occupancy levers, env-tunable via the
-#: central registry (WORLDTPU_REFINE_GF).
-REFINE_GF = FLAGS.refine_gf
+
+def dedup_candidates(cand, tol=None):
+    """The f32 production pre-pass shared by every refine implementation:
+    compact each frame's active candidates to the front in ascending
+    order, and drop a value within ``tol * prev`` of its sorted
+    predecessor ``prev``.  Returns [F, S], zero-padded after the survivors.
+
+    Near-duplicate candidates refine to the same instantaneous-frequency
+    attractor (and thus the same score): the +-3-frame overlap spreading
+    (harvest.cpp:987-999) makes ~7x copies whose values drift by <~1%
+    frame to frame, so refining one representative per tol-cluster is
+    value-equivalent for every downstream consumer (argmax score,
+    nearest-candidate selection and neighbour pruning operate on VALUES,
+    never slot positions).  Without it the f32 path flips ~20 voicing
+    decisions on the bench vowel against the C++ reference.  The f64
+    parity path never takes it.  ``tol`` defaults to REFINE_DEDUP_TOL."""
+    tol = REFINE_DEDUP_TOL if tol is None else tol
+    F = cand.shape[0]
+    cand_s = jnp.sort(jnp.where(cand > 0.0, cand, jnp.inf), axis=1)
+    prev = cand_s[:, :-1]
+    dup = jnp.concatenate(
+        [jnp.zeros((F, 1), bool), (cand_s[:, 1:] - prev) <= tol * prev],
+        axis=1) & jnp.isfinite(cand_s)
+    cand_s = jnp.sort(jnp.where(dup, jnp.inf, cand_s), axis=1)
+    return jnp.where(jnp.isfinite(cand_s), cand_s, 0.0)
+
+
+def refine_backend(platform=None):
+    """Which f32 refine implementation runs on ``platform`` (a JAX backend
+    or lowering platform name; default: the default backend):
+    ``"triton"`` — the adaptive Pallas kernel (ops/refine_kernel.py) on an
+    NVIDIA GPU; ``"dense"`` — ``refine_stage`` on the CPU.  Any other
+    platform is an error, not a fallback."""
+    platform = jax.default_backend() if platform is None else platform
+    if platform in ("gpu", "cuda"):
+        return "triton"
+    if platform == "cpu":
+        return "dense"
+    raise ValueError(f"no f32 refine implementation for platform "
+                     f"{platform!r} (supported: gpu, cpu)")
+
+
+def refine_production(y, cand, tpos, *, geo, chunk):
+    """f32 stage D: the shared dedup pre-pass, then the implementation of
+    the same dense semantics that ``refine_backend`` names for the
+    platform the program is compiled for (so a GPU process can still run
+    this program on its CPU device).  Lowering for a platform with no
+    implementation fails."""
+    cand = dedup_candidates(cand)
+
+    def impl(platform):
+        if refine_backend(platform) == "triton":
+            from worldtpu.ops.refine_kernel import refine_stage_triton
+            return functools.partial(refine_stage_triton, geo=geo)
+        return functools.partial(refine_stage, geo=geo, chunk=chunk)
+
+    return jax.lax.platform_dependent(
+        y, cand, tpos, **{p: impl(p) for p in ("cpu", "cuda")})
+
 
 #: Implementation-selector knobs, initialized from the validated central
 #: registry (worldtpu.flags — one place for supported values, A/B'd
@@ -835,10 +905,8 @@ def _grid_for(dtype, grid=None):
     return GRID_MS if dtype == jnp.float32 else 1
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("geo", "chunk", "use_refine", "grid"))
-def harvest_device_stages(x, mean_y, *, geo, chunk=64, use_refine=None,
-                          grid=None):
+@functools.partial(jax.jit, static_argnames=("geo", "chunk", "grid"))
+def harvest_device_stages(x, mean_y, *, geo, chunk=64, grid=None):
     """decimate -> candidates -> refine -> prune as ONE program.
 
     Returns a single flat [2*Fk*S] array (candidates ++ scores) so the
@@ -858,14 +926,9 @@ def harvest_device_stages(x, mean_y, *, geo, chunk=64, use_refine=None,
     y = decimate_stage(x, ratio=geo.ratio, y_length=geo.y_length)
     tposk = jnp.arange(geo_k.f0_length, dtype=dtype) * (k / 1000.0)
     cand, _, _ = candidates_stage(y, mean_y, tposk, geo=geo_k)
-    if use_refine is None:
-        use_refine = (dtype == jnp.float32) and _use_refine_kernel_default()
-    if use_refine:
-        from worldtpu.ops.refine_kernel import refine_stage_pallas
-        cand, score = refine_stage_pallas(
-            y - mean_y, cand, tposk, geo=geo_k,
-            interpret=(use_refine == "interpret"),
-            dedup_tol=REFINE_DEDUP_TOL, gf=REFINE_GF)
+    if dtype == jnp.float32:
+        cand, score = refine_production(y - mean_y, cand, tposk, geo=geo_k,
+                                        chunk=chunk)
     else:
         cand, score = refine_stage(y - mean_y, cand, tposk, geo=geo_k,
                                    chunk=chunk)
@@ -879,18 +942,9 @@ harvest_device_stages_batch = jax.jit(
         in_axes=(0, 0, None, None, None)),
     static_argnums=(2, 3, 4))
 
-#: batched stages with an explicit refine-kernel selector (tests exercise
-#: the Pallas refine in interpret mode through this)
-harvest_device_stages_batch_refine = jax.jit(
-    jax.vmap(lambda x, m, geo, chunk, use_refine: harvest_device_stages(
-        x, m, geo=geo, chunk=chunk, use_refine=use_refine),
-        in_axes=(0, 0, None, None, None)),
-    static_argnums=(2, 3, 4))
 
-
-@functools.partial(jax.jit, static_argnames=("geo", "n_out", "chunk",
-                                             "use_refine"))
-def harvest_device_full(x, mean_y, *, geo, n_out, chunk=64, use_refine=None):
+@functools.partial(jax.jit, static_argnames=("geo", "n_out", "chunk"))
+def harvest_device_full(x, mean_y, *, geo, n_out, chunk=64):
     """Full on-device Harvest: wav -> frame-period F0 [n_out].
 
     Extends `harvest_device_stages` with the device contour chain
@@ -900,8 +954,7 @@ def harvest_device_full(x, mean_y, *, geo, n_out, chunk=64, use_refine=None):
     contour chain runs on the stages' k ms grid (see harvest_device_stages)
     and fix_and_smooth subsamples it to the output frame grid."""
     from worldtpu.analysis import contour_device as CDV
-    flat = harvest_device_stages(x, mean_y, geo=geo, chunk=chunk,
-                                 use_refine=use_refine)
+    flat = harvest_device_stages(x, mean_y, geo=geo, chunk=chunk)
     k = _grid_for(x.dtype)
     F, S = geo.with_grid(k).f0_length, geo.max_candidates
     cand = flat[:F * S].reshape(F, S)
@@ -918,41 +971,37 @@ harvest_device_full_batch = jax.jit(
 
 
 class ZcCapacityError(RuntimeError):
-    """A band signal exceeded the zc kernel's crossing-rate capacity model
-    (event buffer / column / sweep window) — candidates for the affected
-    bands may be silently corrupted.  See zc_kernel.capacity_violations."""
+    """A band signal crossed zero more often than the candidate stage's
+    static event buffer (``geo.e_max`` per band and crossing type) holds —
+    events past the cap are clamped silently, so candidates for the
+    affected bands may be corrupted.  See zc_capacity_violations_batch."""
 
 
 @functools.partial(jax.jit, static_argnames=("geo",))
 def zc_capacity_violations_batch(x, *, geo):
-    """[B, 3] violation counts of the zc kernel's capacity model for each
-    utterance (see zc_kernel.capacity_violations): one cheap extra
-    dispatch (decimate + filter bank + dense mask reductions) that callers
-    run beside the kernel to detect pathological signals instead of
-    silently clamping.  Reference analog: harvest.cpp:85-98 preallocates
-    the same worst case and would overrun instead of detecting."""
-    from worldtpu.ops import zc_kernel
-
+    """[B] count, per utterance, of (band, crossing type) signals whose
+    event count exceeds ``geo.e_max`` — the static slot cap of the f32
+    zero-crossing compaction (``_zero_crossings``), which otherwise clamps
+    silently.  One cheap extra dispatch (decimate + filter bank + dense
+    mask counts) that callers run beside the pipeline to detect
+    pathological signals.  Reference analog: harvest.cpp:85-98
+    preallocates a worst case and would overrun instead of detecting."""
     k = _grid_for(x.dtype)
     geo_k = geo.with_grid(k)
 
+    def count(sig, n_eff):
+        i = jnp.arange(sig.shape[1] - 1)
+        m = (sig[:, :-1] > 0.0) & (sig[:, 1:] <= 0.0) & (i < n_eff - 1)
+        return jnp.sum(m, axis=1)                      # [Nb]
+
     def one(xi):
         y = decimate_stage(xi, ratio=geo.ratio, y_length=geo.y_length)
-        parts = []
-        for lo, hi, Lg in _conv_groups(geo_k):
-            if CONV_MODE == "matmul":
-                parts.append(_band_filter_matmul(y, geo_k, y.dtype, lo,
-                                                 hi, Lg))
-            else:
-                kern = _bandpass_kernels(geo_k, y.dtype, lo, hi, Lg)
-                ypad = jnp.pad(y, (Lg - 1, Lg + 1))
-                parts.append(jax.lax.conv_general_dilated(
-                    ypad[None, None, :], kern[:, None, :],
-                    window_strides=(1,), padding="VALID",
-                    dimension_numbers=("NCW", "OIW", "NCW"),
-                    precision=jax.lax.Precision.DEFAULT)[0])
-        filt = jnp.concatenate(parts, axis=0)
-        return zc_kernel.capacity_violations(filt, geo_k)
+        f = _filter_bank(y, geo_k)
+        g = f[:, 1:] - f[:, :-1]
+        n = jnp.stack([count(f, geo.y_length), count(-f, geo.y_length),
+                       count(g, geo.y_length - 1),
+                       count(-g, geo.y_length - 1)])
+        return jnp.sum(n > geo_k.e_max).astype(jnp.int32)
 
     return jax.vmap(one)(x)
 
@@ -1061,10 +1110,10 @@ class HarvestKernel:
         if check_capacity and dtype != jnp.float64:
             v = np.asarray(zc_capacity_violations_batch(x_batch, geo=g))
             if v.any():
-                bad = np.nonzero(v.sum(axis=1))[0].tolist()
+                bad = np.nonzero(v)[0].tolist()
                 raise ZcCapacityError(
-                    f"zc capacity model exceeded for utterances {bad}: "
-                    f"(event, column, window) violation counts "
+                    f"zc event capacity exceeded for utterances {bad}: "
+                    f"(band, crossing type) overflow counts "
                     f"{v[bad].tolist()} — the input's band-limited "
                     f"crossing rate is outside Harvest's physical model "
                     f"(is the signal a full-band chirp or noise burst?)")

@@ -179,8 +179,8 @@ class World:
     [-> Synthesis]) as ONE compiled program per input geometry.
 
     The per-class facades above mirror the reference's four separate
-    compute() calls; on TPU each call pays a dispatch + download round
-    trip, which dominates a single short utterance.  `World.analyze` and
+    compute() calls; each call pays a dispatch + download round trip,
+    which matters for a single short utterance.  `World.analyze` and
     `World.copy_synthesis` run the same math as one jitted program with
     F0 never visiting the host (production float32 path).
     """

@@ -1,17 +1,13 @@
 """Central registry for the WORLDTPU_* runtime tuning knobs.
 
 Every knob the production path reads lives here: one place to see the
-supported values, the A/B'd default, and the measurement that chose it
-(tools/ab.py on the config-5 corpus stream, 8x3s 22.05 kHz batches on a
-v5e chip — see ROADMAP.md for the per-round measurement logs).
+supported values and the default.
 
 Binding is at IMPORT time, deliberately: the knobs select compiled-program
-structure (kernel shapes, loop layouts, matmul forms), and the jitted entry
-points cache on their static arguments only — a knob that changed under a
-warm jit cache would silently return stale programs.  Processes must set
-the environment before importing worldtpu (tests that sweep combinations
-either spawn subprocesses or call the parameterized kernel APIs directly:
-``zc_kernel.band_candidates_pallas(..., rb=, groups=, sweep=)``).
+structure (matmul forms and precision, the candidate grid), and the jitted
+entry points cache on their static arguments only — a knob that changed
+under a warm jit cache would silently return stale programs.  Processes
+must set the environment before importing worldtpu.
 
 Reference analog: the option structs of
 /root/reference/include/{harvest,cheaptrick,d4c}.hpp hold the *algorithm*
@@ -50,17 +46,6 @@ def _int_min(name, default, lo):
     return v
 
 
-def _kernel_switch(name):
-    """'0' = jnp twin, '1' = Pallas kernel, 'interpret' = Pallas interpret
-    mode, unset = backend default (TPU -> kernel, CPU -> jnp twin)."""
-    v = os.environ.get(name)
-    if v is None:
-        return None
-    if v not in ("0", "1", "interpret"):
-        raise FlagError(f"{name}={v!r}: allowed values ['0','1','interpret']")
-    return {"0": False, "1": True, "interpret": "interpret"}[v]
-
-
 _PRECISIONS = {
     "default": jax.lax.Precision.DEFAULT,
     "high": jax.lax.Precision.HIGH,
@@ -70,68 +55,19 @@ _PRECISIONS = {
 
 @dataclasses.dataclass(frozen=True)
 class Flags:
-    """Parsed + validated WORLDTPU_* knobs (see module docstring).
-
-    Defaults are the device-A/B winners; entries say when/why.
-    """
-
-    #: WORLDTPU_ZC: zero-crossing candidate stage — Pallas kernel vs jnp
-    #: twin (None = kernel on TPU, twin elsewhere).
-    zc: object = None
-
-    #: WORLDTPU_REFINE: refinement stage — Pallas kernel vs dense jnp.
-    refine: object = None
-
-    #: WORLDTPU_OLA: synthesis overlap-add — Pallas kernel vs jnp scatter.
-    ola: object = None
-
-    #: WORLDTPU_EXTEND: contour extendF0 walk — Pallas micro-loop kernel
-    #: (1) vs the XLA while_loop walk (default).  r5 device A/B: the
-    #: kernel measured SLOWER in every layout tried (27-29 vs 19.8
-    #: ms/batch fix_step3) despite the while_loop's ~0.17 ms/step floor —
-    #: slab materialization + dispatch overhead exceed the loop savings.
-    extend: object = None
-
-    #: WORLDTPU_ZC_RB: bands fused per zc grid cell (independent serial
-    #: chains per loop body).  r3 A/B chose 2 (r5 re-measure: rb1/rb2/rb4
-    #: within 3%).
-    zc_rb: int = 2
-
-    #: WORLDTPU_ZC_GROUPS: band-group count (shared crossing-rate caps).
-    #: r5 device A/B (post independent-offset stores): groups10 = 57.6 ms
-    #: vs groups5 = 61.5 on the config-5 batch (tighter per-group caps),
-    #: raw-candidate divergence frac 0.0007 (knife-edge gate flips in
-    #: junk bands, end-to-end F0 gated in bench kernel-parity).
-    #: (Deleted knobs, kept out of the matrix: ZC_SWEEP=xla — dense-XLA
-    #: sweep, 4x slower with 16 Hz drift, r4; ZC_PAINT — interval-cover
-    #: sweep, 14% slower, r5.)
-    zc_groups: int = 10
-
-    #: WORLDTPU_REFINE_GF: frames per refine-kernel grid cell (amortizes
-    #: per-cell DMA/setup; r2 chose 8 over 1; r5 device A/B: gf16 flat
-    #: (48.4 vs 48.3 ms/batch), gf32 flat.
-    #: (Deleted knob: REFINE_GP — fused group chains per loop body;
-    #: r5 device A/B: gp2 = 60.9 ms vs gp1 = 48.3, gp4 = 89.0 — strictly
-    #: worse at every setting, the kernel is throughput-bound on its
-    #: per-group work, not latency-bound on chain count.  The gp kernel
-    #: parameter remains for tests.)
-    refine_gf: int = 8
+    """Parsed + validated WORLDTPU_* knobs (see module docstring)."""
 
     #: WORLDTPU_CONV: band-filter implementation, "matmul" (blocked-
-    #: Toeplitz MXU form) or "conv" (conv_general_dilated).  r3-end A/B:
-    #: matmul 251.8 vs conv 274.7 ms/batch, bitwise-identical F0.
+    #: Toeplitz matmul form) or "conv" (conv_general_dilated).  Both give
+    #: the same F0 up to f32 rounding; which is faster on the GPU is not
+    #: measured yet.
     conv: str = "matmul"
 
-    #: WORLDTPU_CONV_PRECISION: MXU precision of the band-filter matmul.
-    #: r4 A/B: highest = 261.9 vs default 238.7 ms/batch and NOT quality-
-    #: neutral at voicing knife edges — keep default (bf16x3-free).
+    #: WORLDTPU_CONV_PRECISION: precision of the band-filter matmul.
+    #: "default" lets the backend use its fast f32 matmul (TF32 on a
+    #: Hopper GPU); "highest" is full f32.  Not quality-neutral at voicing
+    #: knife edges, so a change is gated on the bench's quality block.
     conv_precision: object = _PRECISIONS["default"]
-
-    #: (Deleted knobs: WORLDTPU_DFT=mm — matmul-DFT engine FFTs; twice
-    #: measured noise-level at 22.05 kHz (r4 235.8 vs 238.3, r5 216.6 vs
-    #: 217.8 ms/batch) and infeasible at 48 kHz (basis constants exceed
-    #: the remote-compile size limit); ops/dft.py keeps the per-call
-    #: mode="mm" utility.  WORLDTPU_DFT_PRECISION went with it.)
 
     #: WORLDTPU_GRID_MS: internal candidate/refine grid period (ms) for
     #: the f32 path.  2 halves per-frame cost but costs voicing-boundary
@@ -142,13 +78,6 @@ class Flags:
     @staticmethod
     def from_env() -> "Flags":
         return Flags(
-            zc=_kernel_switch("WORLDTPU_ZC"),
-            refine=_kernel_switch("WORLDTPU_REFINE"),
-            ola=_kernel_switch("WORLDTPU_OLA"),
-            extend=_kernel_switch("WORLDTPU_EXTEND"),
-            zc_rb=_int_min("WORLDTPU_ZC_RB", 2, 1),
-            zc_groups=_int_min("WORLDTPU_ZC_GROUPS", 10, 1),
-            refine_gf=_int_min("WORLDTPU_REFINE_GF", 8, 1),
             conv=_choice("WORLDTPU_CONV", "matmul", {"conv", "matmul"}),
             conv_precision=_PRECISIONS[_choice(
                 "WORLDTPU_CONV_PRECISION", "default", set(_PRECISIONS))],

@@ -6,7 +6,7 @@ scope.  Here a corpus is streamed as static-shape batches so one jitted
 program serves the whole directory: utterances are sorted by length into
 batches (minimizing padding waste), T is quantized up to a multiple of
 ``pad_to`` and the frame axis to a multiple of ``frames_to`` so repeated
-batches reuse compiled programs instead of triggering fresh TPU compiles.
+batches reuse compiled programs instead of triggering fresh compiles.
 
 Feeds ``HarvestKernel.compute_corpus`` and ``parallel.batch`` consumers;
 ``bench.py`` streams its corpus through this loader.

@@ -3,7 +3,7 @@
 Reference: /root/reference/tools/audioio.cpp — 16-bit decode is
 ``int16 / 2**15`` (:236-251) and encode is ``clip(int(x * 32767))`` (:163-167).
 8/24-bit reads use the same sign-bias scheme.  Python-side (file IO is not a
-TPU concern); the batched corpus loader lives in io/corpus.py.
+device concern); the batched corpus loader lives in io/corpus.py.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ The reference handles any duration with O(1)-per-frame memory: CheapTrick
 loops one frame at a time (/root/reference/src/cheaptrick.cpp:64-88), D4C
 likewise (/root/reference/src/d4c.cpp:143-169) and Synthesis streams pulse
 responses into the output (/root/reference/src/synthesis.cpp:77-177).  The
-batched TPU programs instead materialize [F, K] slabs and a
+batched device programs instead materialize [F, K] slabs and a
 [max_pulses, fft_size] response slab — fine for utterances, fatal for a
 10-minute recording (F ~ 120k x K ~ 1025 ~ GBs).
 
@@ -239,17 +239,13 @@ def _chunk_step(x_pad, f0_full, k, carry, ord0, key, *, fs, fft_size,
     # position j <-> local sample j - half + 1.  Masked fill rows are all
     # zero but must still target in-range offsets.
     idx = jnp.where(own, idx, 0)
-    if S._use_ola_kernel_default() and dt != jnp.float64:
-        from worldtpu.ops.ola_kernel import overlap_add
-        buf = overlap_add(resp, idx, L + fft_size)
-    else:
-        j = jnp.arange(fft_size)
-        target = idx[:, None] + j[None, :]
-        ok = (target < L + fft_size) & own[:, None]
-        flat_t = jnp.where(ok, target, L + fft_size).reshape(-1)
-        flat_v = jnp.where(ok, resp, 0.0).reshape(-1)
-        buf = jnp.zeros(L + fft_size + 1, dtype=dt).at[flat_t].add(
-            flat_v)[:L + fft_size]
+    j = jnp.arange(fft_size)
+    target = idx[:, None] + j[None, :]
+    ok = (target < L + fft_size) & own[:, None]
+    flat_t = jnp.where(ok, target, L + fft_size).reshape(-1)
+    flat_v = jnp.where(ok, resp, 0.0).reshape(-1)
+    buf = jnp.zeros(L + fft_size + 1, dtype=dt).at[flat_t].add(
+        flat_v)[:L + fft_size]
     return buf, carry_out, ord0 + n_own, overflowed
 
 
@@ -325,7 +321,7 @@ class LongPipeline:
         are INDEPENDENT.  parallel=True runs them as one lax.map dispatch
         (same memory bound, no per-chunk host round trips); mesh=Mesh
         additionally shards the chunk axis across devices (shard_map), so
-        a single long utterance scales over a pod slice — the overlap-save
+        a single long utterance scales over several devices — the overlap-save
         halo makes each chunk self-contained (SURVEY §5 long-context row).
         Results are bitwise-identical to the sequential path by
         construction (the prescan reuses _timebase_core)."""

@@ -6,10 +6,10 @@ LinearSmoothing, NuttallWindow) and
 /root/reference/src/world_matlabfunctions.cpp:27-125,184-210 (decimate and its
 hard-coded per-ratio IIR table).
 
-TPU notes: the reference runs its IIR filters as sequential time loops; here
-the decimation IIR is exact blocked linear-recurrence matmuls (impulse
-response Toeplitz + block-boundary power tables on the MXU), and the F0
-smoothing biquad is an associative scan of affine state maps.
+Device notes: the reference runs its IIR filters as sequential time loops;
+here the decimation IIR is exact blocked linear-recurrence matmuls (impulse
+response Toeplitz + block-boundary power tables), and the F0 smoothing
+biquad is an associative scan of affine state maps.
 """
 
 from __future__ import annotations
@@ -77,8 +77,8 @@ def _affine_combine(a, b):
     """Compose affine maps s -> A s + c; b is applied after a.
 
     The 4x4/3x3 matrix products are written as broadcast-multiply +
-    reductions: batched tiny dot_generals map terribly onto the 128x128 MXU
-    (observed ~10x slower than the equivalent VPU elementwise form)."""
+    reductions: batched tiny dot_generals map poorly onto matrix units,
+    and the elementwise form fuses."""
     a_mat, a_vec = a
     b_mat, b_vec = b
     mat = jnp.sum(b_mat[..., :, :, None] * a_mat[..., None, :, :], axis=-2)
@@ -151,9 +151,9 @@ def iir_affine_scan(x, a_coeffs, b_coeffs, block=256):
     is a linear recurrence s' = A s + e0 x with constant A, so a length-L
     block advances the state by s_{k+1} = A^L s_k + W_c x_block and emits
     y_block = G s_k + H x_block with H the lower-triangular Toeplitz of the
-    impulse response — all dense MXU matmuls plus one tiny scan over block
-    boundaries.  (A log-depth associative scan of 4x4 affine maps is ~40x
-    slower on TPU: batched tiny matmuls can't tile the MXU.)
+    impulse response — all dense matmuls plus one tiny scan over block
+    boundaries (instead of a log-depth associative scan of 4x4 affine
+    maps, i.e. batched tiny matmuls).
 
     Args:
         x: [T] input signal.
@@ -177,7 +177,7 @@ def iir_affine_scan(x, a_coeffs, b_coeffs, block=256):
     c = jnp.dot(xb, Wc, preferred_element_type=dt, precision=_PREC)          # [nb, 4]
 
     # block-start states via one matvec against the precomputed power table
-    # (a lax.scan here costs ~0.5 ms/step in TPU while-loop overhead)
+    # (instead of a lax.scan with one loop step per block)
     P = jnp.asarray(
         _iir_boundary_table(tuple(a_coeffs), tuple(b_coeffs), L, nb), dt)
     s0 = jnp.dot(P, c.reshape(-1), preferred_element_type=dt,
@@ -477,8 +477,8 @@ def linear_smoothing_batch(power_spectra, widths, fs, fft_size, max_boundary):
     # (b <= mb), and dense is zero outside the tap span (the 4 taps sum to
     # zero, so the suffix cumsum vanishes below the lowest tap).  Slicing
     # the kernel to that support halves the grouped conv's tap count —
-    # conv cost on TPU scales with taps (ROADMAP cost model) — with
-    # bitwise-identical output (the dropped taps are exact 0.0 summands).
+    # conv cost scales with taps — with bitwise-identical output (the
+    # dropped taps are exact 0.0 summands).
     s0 = max(mb // 2 - 2, 0)
     Wk_s = Wk - s0 - max(mb // 2 - 2, 0)
     dense = dense[:, s0:s0 + Wk_s]

@@ -1,30 +1,31 @@
-"""Pallas TPU kernel: adaptive-width F0 refinement (Harvest stage D).
+"""Pallas (Triton) GPU kernel: adaptive-width F0 refinement (Harvest
+stage D).
 
-Replaces the dense [frames, slots, Wmax] window/DFT slab of
-`worldtpu.analysis.harvest._refine_chunk`'s production path (reference
+Computes the same harmonic-bin spectra as the dense production refine
+(`worldtpu.analysis.harvest._refine_chunk`, reference
 refineF0Candidates/getRefinedF0, /root/reference/src/harvest.cpp:844-982)
-with a work-adaptive kernel: the dense formulation evaluates every one of
-the S = 7*Cb candidate slots over the worst-case window Wmax = 2*hwmax+1
-(553 samples at fs=22.05k, f0_floor=40), but per frame only ~10-40 slots
-are active and a typical candidate's true window 2*1.5*fs_a/f0+1 spans a
-fraction of Wmax.  Here each grid cell (one frame) loops over
+with work that adapts to the data.  The dense form evaluates every one of
+the ``refine_cap(S)`` slots of every frame over the worst-case window
+Wmax = 2*hwmax+1 (553 samples at fs=22.05k, f0_floor=40), but after the
+shared dedup pre-pass (`harvest.dedup_candidates`) a frame has only a
+handful of active candidates, and a typical candidate's true window
+2*1.5*fs_a/f0+1 spans a fraction of Wmax.  Here one program refines one
+frame: it loops over ceil(n_active / PAIRS) groups of candidates, and for
+each group over the 128-sample blocks up to that group's widest window.
+Both trip counts are dynamic.
 
-    ceil(n_active / 8) pair groups x ceil((2*hw_group+1) / 128) blocks
+Per block, a [PAIRS, 128] tile evaluates the Blackman window at the
+sample and its two neighbours (the centred difference), multiplies the
+block's own waveform segment, and reduces against the group's harmonic
+twiddles.  The twiddles use the dense path's split m = 128*j + r: the
+inner [PAIRS, 128] cos/sin tables (phases reduced exactly in int32) are
+built once per group, the outer per-block factors are [PAIRS] vectors.
+All arithmetic is f32 FMAs; no tensor cores.
 
-with dynamic trip counts — compute scales with the actual candidate load
-and window widths (~5-10x less VPU work than the dense slab).
-
-Layout: 8 candidate pairs on sublanes x 128 window samples on lanes.  Per
-block the Blackman window, its centered difference, and the six harmonic
-DFT twiddles cos/sin((2*pi/N)*((gbin*m) mod N)) are evaluated on [8, 128]
-tiles, reduced over lanes, and accumulated into per-pair output lanes
-(lane 32*comp + h).  Phases are reduced exactly in int32, matching the jnp
-production path's conditioning; results agree with it to f32 rounding
-(tests compare the two directly).
-
-The instantaneous-frequency finishing math (harvest.cpp:907-939) runs in
-jnp on the kernel's [F, cap, 6] spectral sums — it is tiny and keeps the
-kernel free of data-dependent scoring.
+The kernel takes candidates COMPACTED to the front of each row (the
+output of `harvest.dedup_candidates`); the per-pair integer geometry and
+the instantaneous-frequency finishing math are the dense path's own
+(`harvest.refine_pair_params`, `harvest.refine_finish`).
 """
 
 from __future__ import annotations
@@ -34,310 +35,144 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from worldtpu import constants as C
 
-CAP = 64  # static refined-slot capacity (observed active max ~37)
+#: candidate pairs per group (rows of a block tile)
+PAIRS = 8
+#: samples per block (columns of a block tile)
+BLOCK = 128
+#: the 24 spectral sums per pair: (Sm_re, Sm_im, Sd_re, Sd_im) x 6 harmonics
+_NSUM = 24
 
 
-def _matlab_round(x):
-    return jnp.where(x > 0, jnp.floor(x + 0.5),
-                     jnp.ceil(x - 0.5)).astype(jnp.int32)
+def _refine_kernel(nact_ref, q0_ref, shift_ref, hw_ref, wlt_ref, gbin_ref,
+                   y_ref, tab_ref, out_ref, *, hwmax, fs_a, n_fft, pad_lo,
+                   use_cos_table):
+    from worldtpu.analysis.harvest import _main_window_values
 
-
-def _refine_frame_kernel(f0_ref, seg_ref, out_ref, *,
-                         hwmax, n_fft, max_fft_index, fs_a, f0_dummy,
-                         delta_row, gf, pairs=8, gp=1, fast_trig=True,
-                         ablate=()):
     f32 = jnp.float32
-    if fast_trig:
-        # seed angles only need ~1e-6 (the rotation chains drift that much
-        # anyway); the polynomial pair is ~16 VPU ops vs two libm-style
-        # expansions per tile (see ops/kmath.py)
-        from worldtpu.ops.kmath import fast_cossin as _cossin
-    else:
-        def _cossin(x):
-            return jnp.cos(x), jnp.sin(x)
-    P = pairs
-    out_ref[...] = jnp.zeros_like(out_ref)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (P, 128), 1)
-    sub = jax.lax.broadcasted_iota(jnp.int32, (P, 128), 0)
+    f = pl.program_id(0)
+    nact = nact_ref[f]
+    q0 = q0_ref[f]                        # y index of segment sample m = 0
+    shift = shift_ref[f]                  # q0 - pos * fs_a (samples)
+    lane = jax.lax.broadcasted_iota(jnp.int32, (BLOCK,), 0)
     two_pi = 2.0 * C.PI
+    w_n = two_pi / n_fft
 
-    def frame(fi, carry_f):
-        # per-frame scalars arrive through vector lanes (SMEM inputs cannot
-        # be batch-blocked under vmap): delta is replicated in seg's spare
-        # row, n_active is the count of nonzero compacted slots
-        deltav = jnp.broadcast_to(
-            seg_ref[fi, delta_row:delta_row + 1, :], (P, 128))
-        nact = jnp.sum((f0_ref[fi] > 0.0).astype(jnp.int32))
-        ngroups = (nact + P - 1) // P
-        if gp == 1:
-            jax.lax.fori_loop(
-                0, ngroups,
-                lambda g, c: group(fi, deltav, nact, g, c), jnp.int32(0))
-        else:
-            # gp independent group chains fused per iteration: padded
-            # group slots (g >= ngroups) compute over all-inactive pairs
-            # (active mask False -> zero accumulators) and store zeros to
-            # their untouched out rows — harmless, no predication needed
-            def fused(g2, c):
-                for dg in range(gp):
-                    group(fi, deltav, nact, gp * g2 + dg, c)
-                return c
-            jax.lax.fori_loop(0, (ngroups + gp - 1) // gp, fused,
-                              jnp.int32(0))
-        return carry_f
-
-    def group(fi, deltav, nact, g, carry):
-        f0_raw = f0_ref[fi, pl.ds(P * g, P), :]             # [P, 1]
-        f0 = jnp.where(f0_raw > 0.0, f0_raw, f0_dummy)
-        active = (sub + P * g) < nact                       # [P, 128]
-        hw = (1.5 * fs_a / f0 + 1.0).astype(jnp.int32)      # [8, 1]
-        wlf = (2 * hw + 1).astype(f32)
-        fidx = 2 + (jnp.log(wlf) / C.LOG2).astype(jnp.int32)
-        fftp_f = jnp.left_shift(1, fidx).astype(f32)
-        rshift = max_fft_index - fidx                       # ratio = 1<<rshift
-        gbins = []
+    def group(g, carry):
+        base = g * PAIRS
+        hw = hw_ref[f, pl.ds(base, PAIRS)]               # [P] (-1: inactive)
+        wlt = wlt_ref[f, pl.ds(base, PAIRS)]
+        gbin = [gbin_ref[f, h, pl.ds(base, PAIRS)] for h in range(6)]
+        # inner twiddles over r = m mod 128, built once per group
+        ci, si = [], []
         for h in range(6):
-            xh = f0 * fftp_f / fs_a * (h + 1.0)
-            idx = _matlab_round(xh)
-            gbins.append(jnp.clip(jnp.left_shift(idx, rshift), 0, n_fft // 2))
+            a = w_n * ((gbin[h][:, None] * lane[None, :]) % n_fft).astype(f32)
+            ci.append(jnp.cos(a))
+            si.append(jnp.sin(a))
         hwg = jnp.max(hw)
-        jlo = jnp.maximum((hwmax - hwg) // 128, 0)
-        jhi = (hwmax + hwg) // 128
+        jlo = (hwmax - hwg) // BLOCK
+        nblk = jnp.where(hwg >= 0, (hwmax + hwg) // BLOCK - jlo + 1, 0)
 
-        # window angles advance by lane-independent per-pair constants
-        # across blocks (+128 samples) and the +-1-sample stencil, so one
-        # cos/sin pair at the group's first block plus cheap complex
-        # rotations replaces 6 transcendental arrays per block
-        m0 = 128 * jlo + lane                               # [8, 128]
-        t2_0 = two_pi * (m0.astype(f32) + deltav) / wlf
-        c0, s0 = _cossin(t2_0)
-        # the [8, 1] step angles stay exact (tiny tiles, and the rotation
-        # chains compound any step error over up to 9 blocks)
-        d128 = two_pi * 128.0 / wlf                         # [8, 1]
-        cd128, sd128 = jnp.cos(d128), jnp.sin(d128)
-        d1 = two_pi / wlf
-        cd1, sd1 = jnp.cos(d1), jnp.sin(d1)
+        def window(m, d):
+            # main window at segment sample m + d, masked to each pair's
+            # own support |m + d - hwmax| <= hw (dense: in_w)
+            tmp = ((m + d).astype(f32) + shift) / fs_a         # [128]
+            t2 = two_pi * tmp[None, :] / wlt[:, None]          # [P, 128]
+            v = _main_window_values(t2, use_cos_table, f32,
+                                    lookup=lambda i: tab_ref[i])
+            inw = jnp.abs(m + d - hwmax)[None, :] <= hw[:, None]
+            return jnp.where(inw, v, 0.0), inw
 
-        def blackman(c):
-            return 0.42 + 0.5 * c + 0.08 * (2.0 * c * c - 1.0)
-
-        # harmonic twiddles rotate the same way: exact int32-reduced phases
-        # at the first block, then per-pair constant rotations (12 cheap
-        # FMAs replace 12 transcendental arrays per block; drift over <=9
-        # blocks is ~1e-6, far under the f32 path's tolerance)
-        ch0, sh0, cdh, sdh = [], [], [], []
-        for h in range(6):
-            if "noseed" in ablate:   # ablation: wrong results, no seeds
-                ch0.append(c0)
-                sh0.append(s0)
-                cdh.append(cd128)
-                sdh.append(sd128)
-                continue
-            a0 = (two_pi / n_fft) * ((gbins[h] * m0) % n_fft).astype(f32)
-            ch, sh2 = _cossin(a0)
-            ch0.append(ch)
-            sh0.append(sh2)
-            ad = (two_pi / n_fft) * ((gbins[h] * 128) % n_fft).astype(f32)
-            cdh.append(jnp.cos(ad))
-            sdh.append(jnp.sin(ad))
-
-        def block(j, carry_b):
-            cw, sw, chs, shs, accs = carry_b
-            s = seg_ref[fi, pl.ds(j, 1), :]                 # [1, 128]
-            segb = jnp.broadcast_to(s, (P, 128))
-            m = 128 * j + lane                              # [8, 128] int32
-            dmm = m - hwmax
-
-            inw0 = jnp.abs(dmm) <= hw
-            mw = jnp.where(inw0, blackman(cw), 0.0)
-            c_p = cw * cd1 - sw * sd1
-            c_m = cw * cd1 + sw * sd1
-            wp = jnp.where(jnp.abs(dmm + 1) <= hw, blackman(c_p), 0.0)
-            wm = jnp.where(jnp.abs(dmm - 1) <= hw, blackman(c_m), 0.0)
-            dw = jnp.where(inw0, -(wp - wm) * 0.5, 0.0)
-            mainb = jnp.where(active, segb * mw, 0.0)
-            diffb = jnp.where(active, segb * dw, 0.0)
-            # accumulate full [8, 128] tiles; the lane reduction happens
-            # ONCE per group below (a per-block reduction was measured
-            # ~10% slower despite the smaller loop carry)
-            new = []
-            nch, nsh = [], []
+        def block(j, accs):
+            m = BLOCK * j + lane
+            ys = y_ref[pl.ds(q0 + pad_lo + BLOCK * j, BLOCK)]  # [128]
+            mw, inw = window(m, 0)
+            wp, _ = window(m, 1)
+            wm, _ = window(m, -1)
+            dw = jnp.where(inw, -(wp - wm) / 2.0, 0.0)
+            main = ys[None, :] * mw
+            diff = ys[None, :] * dw
+            out = []
             for h in range(6):
-                cb, sb = chs[h], shs[h]
+                ao = w_n * ((gbin[h] * (BLOCK * j)) % n_fft).astype(f32)
+                co, so = jnp.cos(ao), jnp.sin(ao)             # [P]
+                am = jnp.sum(main * ci[h], axis=1)
+                bm = jnp.sum(main * si[h], axis=1)
+                ad = jnp.sum(diff * ci[h], axis=1)
+                bd = jnp.sum(diff * si[h], axis=1)
                 a = accs[4 * h:4 * h + 4]
-                new += [a[0] + mainb * cb, a[1] + mainb * sb,
-                        a[2] + diffb * cb, a[3] + diffb * sb]
-                nch.append(cb * cdh[h] - sb * sdh[h])
-                nsh.append(cb * sdh[h] + sb * cdh[h])
-            cw2 = cw * cd128 - sw * sd128
-            sw2 = cw * sd128 + sw * cd128
-            return (cw2, sw2, tuple(nch), tuple(nsh), tuple(new))
+                out += [a[0] + (am * co - bm * so),
+                        a[1] - (am * so + bm * co),
+                        a[2] + (ad * co - bd * so),
+                        a[3] - (ad * so + bd * co)]
+            return tuple(out)
 
-        _, _, _, _, accs = jax.lax.fori_loop(
-            jlo, jhi + 1, block,
-            (c0, s0, tuple(ch0), tuple(sh0),
-             tuple(jnp.zeros((P, 128), f32) for _ in range(24))))
-        if "noout" in ablate:        # ablation: skip reduce + placement
-            out_ref[fi, pl.ds(P * g, P), :] = accs[0]
-            return carry
-        # r5 ablations: this reduce+place block is ~12 ms of the 50 ms
-        # batch wall (noout 38.5), harmonic seeds ~7 ms but hidden under
-        # block-loop overlap (noout+noseed also 38.5); replacing the 24
-        # lane reductions with ONE [192,128] ones-matmul on the MXU was
-        # SLOWER (55.9 ms — relayout + matmul latency per group).  The
-        # per-group fixed cost is intrinsic to the output contract.
-        out = jnp.zeros((P, 128), f32)
-        for h in range(6):
-            for c, sgn in ((0, 1.0), (1, -1.0), (2, 1.0), (3, -1.0)):
-                r = sgn * jnp.sum(accs[4 * h + c], axis=1, keepdims=True)
-                out = out + r * (lane == (32 * c + h)).astype(f32)
-        out_ref[fi, pl.ds(P * g, P), :] = out
+        accs = jax.lax.fori_loop(
+            jlo, jlo + nblk, block,
+            tuple(jnp.zeros((PAIRS,), f32) for _ in range(_NSUM)))
+        for k in range(_NSUM):
+            out_ref[f, k, pl.ds(base, PAIRS)] = accs[k]
         return carry
 
-    jax.lax.fori_loop(0, gf, frame, jnp.int32(0))
+    jax.lax.fori_loop(0, (nact + PAIRS - 1) // PAIRS, group, jnp.int32(0))
 
 
-@functools.partial(jax.jit, static_argnames=("geo", "interpret", "pairs",
-                                             "dedup_tol", "gf", "gp",
-                                             "fast_trig", "ablate"))
-def refine_stage_pallas(y, cand, tpos, *, geo, interpret=False, pairs=8,
-                        dedup_tol=0.0, gf=8, gp=1, fast_trig=True,
-                        ablate=()):
-    """Adaptive refine for the production f32 path.
+@functools.partial(jax.jit, static_argnames=("geo", "interpret"))
+def refine_stage_triton(y, cand, tpos, *, geo, interpret=False):
+    """Stage D on a GPU: same contract and semantics as
+    ``harvest.refine_stage`` for candidates compacted to the front of
+    each row (``harvest.dedup_candidates``); values agree with it to f32
+    summation order.  ``interpret=True`` runs the kernel in the Pallas
+    interpreter (CPU tests)."""
+    from worldtpu.analysis import harvest as H
 
-    Drop-in for `harvest.refine_stage` EXCEPT that refined candidates come
-    back compacted (active slots lead each frame row, zero-padded to S) —
-    downstream consumers (pruning, contour search/fixing) use candidate
-    values and scores only, never slot positions, so the order change is
-    semantics-free; the f64 parity path keeps the reference layout.
-    """
     dt = y.dtype
     F, S = cand.shape
+    cap = H.refine_cap(S)
+    capp = -(-cap // PAIRS) * PAIRS
     fs_a = float(geo.actual_fs)
     hwmax = geo.max_half_window
-    n_fft = geo.refine_fft
 
-    # -- compaction, sorted by ascending f0 == descending window width:
-    # pairs in an 8-slot kernel group then share similar widths, so the
-    # group's dynamic block range (set by its widest pair) wastes little
-    active = cand > 0.0
-    cand_s = jnp.sort(jnp.where(active, cand, jnp.inf), axis=1)
-    if dedup_tol > 0.0:
-        # near-duplicate candidates refine to the same instantaneous-
-        # frequency attractor (and thus the same score): the +-3-frame
-        # overlap spreading (harvest.cpp:987-999) makes ~7x copies whose
-        # values drift by <~1% frame to frame, so refining one
-        # representative per dedup_tol-cluster is value-equivalent for
-        # every downstream consumer (argmax score, nearest-candidate
-        # selection, neighbor-consistency pruning operate on VALUES).
-        # Production-only shortcut: the f64 parity path never takes it.
-        prev = cand_s[:, :-1]
-        dup = jnp.concatenate(
-            [jnp.zeros((F, 1), bool),
-             (cand_s[:, 1:] - prev) <= dedup_tol * prev], axis=1)
-        dup = dup & jnp.isfinite(cand_s)
-        cand_s = jnp.sort(jnp.where(dup, jnp.inf, cand_s), axis=1)
-    n_active = jnp.minimum(
-        jnp.sum(jnp.isfinite(cand_s), axis=1), CAP)         # [F]
-    cand_c = cand_s[:, :CAP]
-    cand_c = jnp.where(jnp.isfinite(cand_c), cand_c, 0.0)
-    kk = jnp.arange(CAP)[None, :]
-    valid = kk < n_active[:, None]
-    # inactive dummy = f0_ceil: keeps the math finite with the narrowest
-    # possible window so padded pairs never widen a group's block range
-    # (the kernel applies the same dummy to its zero slots)
-    f0c = jnp.where(valid, cand_c, geo.f0_ceil).astype(dt)
-    f0_in = jnp.where(valid, cand_c, 0.0)
+    f0 = jnp.pad(cand[:, :cap], ((0, 0), (0, capp - cap)))
+    nact = jnp.minimum(jnp.sum(cand > 0.0, axis=1), cap).astype(jnp.int32)
+    valid = jnp.arange(capp)[None, :] < nact[:, None]
+    f0s = jnp.where(valid, f0, H.REFINE_DUMMY_F0)
+    hw, wlt, fft_p, n_harm, idx_h, gbin = H.refine_pair_params(f0s, geo)
+    hw = jnp.where(valid, hw, -1)
 
-    # -- frame segments + window-phase offsets --
-    origin = _matlab_round(tpos * fs_a + 0.001)             # [F]
-    r_seg = -(-(2 * hwmax + 1) // 128)
-    r8 = -(-(r_seg + 1) // 8) * 8                           # >=1 spare row
-    delta_row = r8 - 1
-    # contiguous slices from an edge-replicated pad (bit-identical to the
-    # per-element clip(q, 0, L-1) gather, ~30x fewer gather descriptors)
+    origin = H._matlab_round(tpos * fs_a + 0.001)             # [F]
+    q0 = (origin - 1 - hwmax).astype(jnp.int32)
+    # frame-relative sample times, as the dense path computes them
+    shift = q0.astype(jnp.float32) - tpos.astype(jnp.float32) * fs_a
+    # edge-replicated pad == the dense path's clip(q, 0, L-1) gather; the
+    # tail covers the last block of the widest window
     pad_lo = hwmax + 1
-    ypad = jnp.pad(y, (pad_lo, hwmax + r_seg * 128), mode="edge")
-    starts = origin - 1 - hwmax + pad_lo
-    seg = jax.vmap(
-        lambda s: jax.lax.dynamic_slice(ypad, (s,), (r_seg * 128,)))(starts)
-    delta = (origin - 1 - hwmax).astype(dt) - tpos * fs_a   # [F]
-    seg = jnp.concatenate([
-        seg.reshape(F, r_seg, 128),
-        jnp.zeros((F, r8 - r_seg - 1, 128), dt),
-        jnp.broadcast_to(delta[:, None, None], (F, 1, 128)),
-    ], axis=1)                                              # [F, r8, 128]
+    n_blk = -(-(2 * hwmax + 1) // BLOCK)
+    ypad = jnp.pad(y.astype(jnp.float32), (pad_lo, BLOCK * (n_blk + 1)),
+                   mode="edge")
 
-    # multiple frames per grid cell amortize the per-cell DMA/setup cost
-    # (3001 single-frame cells measured ~40% of the kernel wall)
-    GF = gf
-    Fp = -(-F // GF) * GF
-    f0_in = jnp.pad(f0_in, ((0, Fp - F), (0, 0)))
-    seg = jnp.pad(seg, ((0, Fp - F), (0, 0), (0, 0)))
-
-    kern = functools.partial(
-        _refine_frame_kernel, hwmax=hwmax, n_fft=n_fft,
-        max_fft_index=geo.max_fft_index, fs_a=fs_a,
-        f0_dummy=float(geo.f0_ceil), delta_row=delta_row, gf=GF,
-        pairs=pairs, gp=gp, fast_trig=fast_trig, ablate=ablate)
+    kern = functools.partial(_refine_kernel, hwmax=hwmax, fs_a=fs_a,
+                             n_fft=geo.refine_fft, pad_lo=pad_lo,
+                             use_cos_table=geo.use_cos_table)
     sums = pl.pallas_call(
         kern,
-        grid=(Fp // GF,),
-        in_specs=[
-            pl.BlockSpec((GF, CAP, 1), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((GF, r8, 128), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((GF, CAP, 128), lambda i: (i, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((Fp, CAP, 128), jnp.float32),
+        grid=(F,),
+        out_shape=jax.ShapeDtypeStruct((F, _NSUM, capp), jnp.float32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=1),
         interpret=interpret,
-    )(f0_in[:, :, None].astype(jnp.float32), seg.astype(jnp.float32))
-    sums = sums[:F]
-
-    sm_re = sums[:, :, 0:6].astype(dt)
-    sm_im = sums[:, :, 32:38].astype(dt)
-    sd_re = sums[:, :, 64:70].astype(dt)
-    sd_im = sums[:, :, 96:102].astype(dt)
-
-    # -- finishing math (identical to harvest._refine_chunk :907-939) --
-    hw = (1.5 * fs_a / f0c + 1.0).astype(jnp.int32)
-    w_len = 2 * hw + 1
-    fft_index = 2 + (jnp.log(w_len.astype(dt)) / C.LOG2).astype(jnp.int32)
-    fft_p = jnp.left_shift(1, fft_index).astype(dt)
-    h = jnp.arange(6)
-    idx_h = _matlab_round(
-        f0c[:, :, None] * fft_p[:, :, None] / fs_a * (h[None, None, :] + 1.0))
-    n_harm = jnp.minimum((fs_a / 2.0 / f0c).astype(jnp.int32), 6)
-
-    power = sm_re ** 2 + sm_im ** 2
-    num_i = sm_re * sd_im - sm_im * sd_re
-    base_freq = idx_h.astype(dt) * fs_a / fft_p[:, :, None]
-    instf = jnp.where(power == 0.0, 0.0,
-                      base_freq + num_i / power * fs_a / (2.0 * C.PI))
-    amp = jnp.sqrt(power)
-    hmask = (h[None, None, :] < n_harm[:, :, None]).astype(dt)
-    numer = jnp.sum(amp * instf * hmask, axis=2)
-    denom = jnp.sum(amp * (h[None, None, :] + 1.0) * hmask, axis=2)
-    refined = numer / (denom + C.MY_SAFE_GUARD_MINIMUM)
-    dev = jnp.sum(jnp.abs(instf / (h[None, None, :] + 1.0) - f0c[:, :, None])
-                  / f0c[:, :, None] * hmask, axis=2)
-    score = 1.0 / (dev / jnp.maximum(n_harm, 1)
-                   + C.MY_SAFE_GUARD_MINIMUM)
-
-    bad = ((refined < geo.f0_floor) | (refined > geo.f0_ceil)
-           | (score < 2.5) | ~valid)
-    refined = jnp.where(bad, 0.0, refined)
-    score = jnp.where(bad, 0.0, score)
-    if S >= CAP:
-        refined = jnp.pad(refined, ((0, 0), (0, S - CAP)))
-        score = jnp.pad(score, ((0, 0), (0, S - CAP)))
-    else:
-        refined = refined[:, :S]
-        score = score[:, :S]
-    return refined, score
+        name="worldtpu_refine",
+    )(nact, q0, shift, hw, wlt.astype(jnp.float32),
+      jnp.swapaxes(gbin, 1, 2).astype(jnp.int32), ypad,
+      jnp.asarray(H._cos_table_np(), jnp.float32))
+    # groups past a frame's last active one are never written
+    sums = jnp.where(valid[:, None, :], sums, 0.0).astype(dt)
+    sums = jnp.swapaxes(sums.reshape(F, 6, 4, capp), 1, 3)    # [F, capp, 4, 6]
+    refined, score = H.refine_finish(
+        sums[:, :, 0], sums[:, :, 1], sums[:, :, 2], sums[:, :, 3],
+        f0s, valid, fft_p, n_harm, idx_h, geo)
+    pad = ((0, 0), (0, S - cap))
+    return (jnp.pad(refined[:, :cap], pad), jnp.pad(score[:, :cap], pad))

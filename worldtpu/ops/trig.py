@@ -2,8 +2,8 @@
 
 The analysis windows (Hanning/Blackman in CheapTrick and D4C, reference
 src/cheaptrick.cpp:107-117 and src/d4c.cpp:277-297) all evaluate
-``cos(alpha_f * i + beta_f)`` over a [frames, W] index grid — on TPU the
-W ~ 2000 transcendentals per frame are ~20 ms of the D4C wall.  Writing
+``cos(alpha_f * i + beta_f)`` over a [frames, W] index grid, W ~ 2000
+transcendentals per frame.  Writing
 i = Q*q + r splits the angle into a per-frame column seed and a per-frame
 row seed:
 

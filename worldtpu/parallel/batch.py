@@ -2,13 +2,13 @@
 (sequence-parallel analog) sharding over a jax.sharding.Mesh.
 
 The reference's only parallel strategy is OpenMP threads over frames/pulses
-inside one address space (SURVEY.md §2 row 14).  The TPU equivalents:
+inside one address space (SURVEY.md §2 row 14).  The device equivalents:
 
   dp — utterance batch sharded over the 'data' mesh axis (zero collectives)
   sp — the frame/time axis sharded over the 'time' mesh axis for the
        analysis engines (each frame only needs the replicated waveform, so
        no halo is required; synthesis consumes the frame axis replicated,
-       which XLA satisfies with an all-gather over ICI)
+       which XLA satisfies with an all-gather between devices)
   tp/pp/ep — not applicable: the vocoder has no weight matrices, layer
        stacks or experts to shard (SURVEY.md §2 rows 14-15)
 
@@ -91,7 +91,7 @@ def batch_copy_synthesis(x, f0, tpos, noise, *, fs, fft_size,
             (dp) and the frame axis of the analysis over 'time' (the
             sequence-parallel analog) via shard_map — each device analyzes
             its frame slab against the replicated-within-data-shard
-            waveform, then the frame axis is all-gathered over ICI for
+            waveform, then the frame axis is all-gathered for
             synthesis.
 
     Returns:
@@ -129,7 +129,7 @@ def batch_copy_synthesis(x, f0, tpos, noise, *, fs, fft_size,
             x, f0, tpos)
 
     # synthesis consumes the full frame axis: constrain to data-sharded so
-    # XLA all-gathers the 'time' axis over ICI
+    # XLA all-gathers the 'time' axis
     rep = NamedSharding(mesh, P("data", None, None))
     spec_g = jax.lax.with_sharding_constraint(spec, rep)
     ap_g = jax.lax.with_sharding_constraint(ap, rep)
@@ -139,25 +139,24 @@ def batch_copy_synthesis(x, f0, tpos, noise, *, fs, fft_size,
 
 
 @functools.partial(
-    jax.jit, static_argnames=("geo", "chunk", "use_zc", "use_refine",
-                              "mesh"))
-def batch_harvest_device_stages(x, *, geo, mesh, chunk=32, use_zc=None,
-                                use_refine=None):
+    jax.jit, static_argnames=("geo", "chunk", "mesh"))
+def batch_harvest_device_stages(x, *, geo, mesh, chunk=32):
     """Harvest device stages (decimate -> candidates -> refine -> prune)
     for a [B, T] batch under the ('data', 'time') mesh.
 
     dp: utterances over 'data'.  Within each data shard the band axis of
-    the candidate stage is sharded over 'time' — the TPU equivalent of the
+    the candidate stage is sharded over 'time' — the device equivalent of the
     reference's OpenMP band loop (/root/reference/src/harvest.cpp:1314-1346)
     — as a STRATIFIED subset (band g lives on shard g % nt) so every shard
     compiles the same kernel geometry; the refinement stage then shards the
     frame axis (the reference's frame loop, :934-943).  Collectives: two
-    all-gathers over 'time' (raw candidates, refined slabs) riding ICI.
+    all-gathers over 'time' (raw candidates, refined slabs).
 
-    Runs the SAME production kernels and grid as the single-chip
-    harvest_device_stages: the Pallas refine kernel on TPU (dense
-    refine_stage elsewhere) and the GRID_MS candidate grid, so a mesh
-    deployment gets single-chip per-chip throughput.
+    Runs the SAME production stages and grid as the single-device
+    harvest_device_stages: the shared f32 dedup pre-pass and the
+    platform's refine (harvest.refine_production), and the GRID_MS
+    candidate grid.  Both the dedup and the refine are frame-local, so
+    frame sharding leaves them unchanged.
 
     Returns [B, 2*Fk*S] flat cand++score rows (same as
     harvest_device_stages per utterance; Fk = geo.with_grid(k).f0_length)."""
@@ -194,16 +193,6 @@ def batch_harvest_device_stages(x, *, geo, mesh, chunk=32, use_zc=None,
         kern_i = kern[order.reshape(-1)].reshape(nt, nbl, -1)
         Wb = None
 
-    if use_zc is None:
-        use_zc = _hv._use_zc_kernel_default()
-    if use_refine is None:
-        use_refine = (dt == jnp.float32) and _hv._use_refine_kernel_default()
-    from worldtpu.ops import zc_kernel as _zc
-    # same group count as the single-chip path (zc_kernel._NGROUPS, from
-    # the WORLDTPU_ZC_GROUPS flag) so sharded == unsharded stays bitwise:
-    # e_cap/window sizing depends on the group count
-    groups = _zc.make_groups(geo_k, n_groups=_zc._NGROUPS, stride=nt)
-
     def cell(x_l, kern_s, bounds_s):
         # x_l [Bl, T]; kern_s [1, nbl, taps]; bounds_s [1, nbl]
         kern_s = kern_s[0]
@@ -226,17 +215,12 @@ def batch_harvest_device_stages(x, *, geo, mesh, chunk=32, use_zc=None,
                     ypad[None, None, :], kern_s[:, None, :],
                     window_strides=(1,), padding="VALID",
                     dimension_numbers=("NCW", "OIW", "NCW"),
-                    # same precision as the single-chip candidates_stage so
-                    # sharded == unsharded holds on real (MXU) hardware too
+                    # same precision as the single-device candidates_stage
+                    # so sharded == unsharded holds on an accelerator too
                     precision=jax.lax.Precision.DEFAULT)[0]  # [nbl, y_len]
-            if use_zc:
-                raw_l = _zc.band_candidates_pallas(
-                    filt, geo_k, bounds=bounds_s, groups=groups,
-                    interpret=(use_zc == "interpret"))
-            else:
-                raw_l = jax.vmap(
-                    lambda fi, b: _hv._band_candidates(fi, b, geo_k, tposk))(
-                        filt, bounds_s)
+            raw_l = jax.vmap(
+                lambda fi, b: _hv._band_candidates(fi, b, geo_k, tposk))(
+                    filt, bounds_s)
             # reassemble the full band axis in global order
             # gathered rows are in (shard t, row j) order; global band
             # index is t + j*nt
@@ -251,13 +235,9 @@ def batch_harvest_device_stages(x, *, geo, mesh, chunk=32, use_zc=None,
             c_l = jax.lax.dynamic_slice(
                 cand_p, (tix * fl, jnp.zeros((), tix.dtype)), (fl, S))
             t_l = jax.lax.dynamic_slice(tpos_p, (tix * fl,), (fl,))
-            if use_refine:
-                from worldtpu.ops.refine_kernel import refine_stage_pallas
-                r_l, s_l = refine_stage_pallas(
-                    y, c_l, t_l, geo=geo_k,
-                    interpret=(use_refine == "interpret"),
-                    dedup_tol=_hv.REFINE_DEDUP_TOL,
-                    gf=_hv.REFINE_GF)
+            if dt == jnp.float32:
+                r_l, s_l = _hv.refine_production(y, c_l, t_l, geo=geo_k,
+                                                 chunk=chunk)
             else:
                 r_l, s_l = _hv.refine_stage(y, c_l, t_l, geo=geo_k,
                                             chunk=chunk)
@@ -368,16 +348,15 @@ def batch_analyze(x, *, geo, fs, fft_size, max_half_window, mesh=None,
 
 
 @functools.partial(
-    jax.jit, static_argnames=("geo", "n_out", "chunk", "use_zc", "mesh"))
-def batch_harvest_f0(x, *, geo, n_out, mesh, chunk=32, use_zc=None):
+    jax.jit, static_argnames=("geo", "n_out", "chunk", "mesh"))
+def batch_harvest_f0(x, *, geo, n_out, mesh, chunk=32):
     """Full sharded Harvest wav -> frame-period F0 [B, n_out]: the device
     stages under the mesh (batch_harvest_device_stages) followed by the
     on-device contour chain (analysis.contour_device), data-parallel per
     utterance.  With this the whole wav->wav pipeline runs on device under
     the mesh — no host round trip between Harvest and synthesis."""
     from worldtpu.analysis import contour_device as CDV
-    flat = batch_harvest_device_stages(x, geo=geo, mesh=mesh, chunk=chunk,
-                                       use_zc=use_zc)
+    flat = batch_harvest_device_stages(x, geo=geo, mesh=mesh, chunk=chunk)
     k = _hv._grid_for(x.dtype)
     geo_k = geo.with_grid(k)
     F, S = geo_k.f0_length, geo_k.max_candidates

@@ -3,17 +3,19 @@ mesh over every process's devices.
 
 The reference is strictly single-process shared memory (SURVEY.md §2 row
 15: no NCCL/MPI/sockets anywhere; OpenMP threads only, e.g.
-/root/reference/src/harvest.cpp:935).  On TPU pods the equivalent runtime
-is the JAX distributed system: one Python process per host, each seeing
-its local chips, with XLA collectives riding ICI within a slice and DCN
-across slices.  This module is the one entry point a pod deployment
-needs; everything downstream (parallel.batch.*) already takes an explicit
-`Mesh` and is agnostic to whether its devices are local or global.
+/root/reference/src/harvest.cpp:935).  On a multi-host GPU cluster the
+equivalent runtime is the JAX distributed system: one Python process per
+host, each seeing its local GPUs, with XLA collectives (NCCL) between
+them.  This module is the one entry point a multi-host deployment needs;
+everything downstream (parallel.batch.*) already takes an explicit `Mesh`
+and is agnostic to whether its devices are local or global.
 
-Single-host usage is unchanged — `make_mesh()` over local devices.  On a
-pod, each process calls::
+Single-host usage is unchanged — `make_mesh()` over local devices (the
+four-GPU check is `python chip_smoke.py --four` on one host).  On a
+cluster, each process calls::
 
-    worldtpu.parallel.init_distributed()          # env-driven (TPU pods)
+    worldtpu.parallel.init_distributed(coordinator_address="host:port",
+                                       num_processes=n, process_id=i)
     mesh = worldtpu.parallel.global_mesh(n_time=2)
 
 and then passes `mesh` to batch_wav_to_wav / batch_copy_synthesis exactly
@@ -23,10 +25,9 @@ mesh maps utterances to the chips that host them
 (jax.make_array_from_process_local_data handles the host->global array
 assembly).
 
-This path cannot be exercised in the single-process CI here (the virtual
+The multi-process path is not exercised by the tests (the virtual
 8-device CPU mesh covers the sharding semantics instead, and
-`__graft_entry__.dryrun_multichip` covers compile+execute); on a real pod
-it requires zero code changes beyond these two calls.
+`__graft_entry__.dryrun_multichip` covers compile+execute).
 """
 
 from __future__ import annotations
@@ -46,14 +47,14 @@ def init_distributed(coordinator_address=None, num_processes=None,
                      process_id=None, local_device_ids=None):
     """Initialize the JAX distributed runtime (idempotent).
 
-    On TPU pods all arguments are optional: `jax.distributed.initialize`
-    reads the TPU environment (megascale coordinator, process count,
-    process index) automatically.  On CPU/GPU clusters pass them
-    explicitly, mirroring jax.distributed.initialize's contract.
+    On CPU/GPU clusters pass the coordinator address, process count and
+    process index explicitly, mirroring jax.distributed.initialize's
+    contract (without them it fails unless a cluster environment it
+    recognizes provides them).
 
     Safe to call when already initialized or when running single-process
     (num_processes == 1 detected from the environment): both become
-    no-ops, so the same launcher script works from a laptop to a pod.
+    no-ops, so the same launcher script works from a laptop to a cluster.
     """
     global _initialized
     if _initialized:
@@ -81,7 +82,7 @@ def global_mesh(n_data=None, n_time=1):
     """('data', 'time') mesh over ALL processes' devices.
 
     Like parallel.batch.make_mesh but over `jax.devices()` after
-    init_distributed() — which on a pod returns the global device list in
+    init_distributed() — which on a cluster returns the global device list in
     a consistent order on every process.  Degrades to dp-only if the
     requested factorization does not cover the device count."""
     from worldtpu.parallel.batch import make_mesh

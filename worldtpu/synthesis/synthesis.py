@@ -24,7 +24,6 @@ import jax
 import jax.numpy as jnp
 
 from worldtpu import constants as C
-from worldtpu.flags import FLAGS
 from worldtpu.ops import dft
 from worldtpu.ops.fftutil import minimum_phase
 from worldtpu.ops.interp import interp1
@@ -213,18 +212,9 @@ def pulse_responses(pt, shift, ns, vuv_at, valid, spectrogram,
     return jnp.where(valid[:, None], resp, 0.0)
 
 
-def _use_ola_kernel_default():
-    """The Pallas overlap-add is the production path on TPU; the jnp
-    scatter remains for CPU (tests) and the f64 parity path.  Env
-    override: WORLDTPU_OLA=0|1|interpret (parsed by worldtpu.flags)."""
-    if FLAGS.ola is not None:
-        return FLAGS.ola
-    return jax.default_backend() == "tpu"
-
-
 def synthesis_frames_impl(f0, spectrogram, aperiodicity, noise, *, fs,
                           fft_size, frame_period_s, out_length, max_pulses,
-                          use_ola=None, return_overflow=False):
+                          return_overflow=False):
     """Synthesize a waveform from (f0, spectrogram, aperiodicity).
 
     Args:
@@ -262,20 +252,16 @@ def synthesis_frames_impl(f0, spectrogram, aperiodicity, noise, *, fs,
     resp = pulse_responses(pt, shift, ns, vuv_at, valid, spectrogram,
                            aperiodicity, noise, fs=fs, fft_size=fft_size)
 
-    if use_ola is None:
-        use_ola = dt != jnp.float64 and _use_ola_kernel_default()
-    if use_ola:
-        from worldtpu.ops.ola_kernel import overlap_add
-        y = overlap_add(resp, idx - half + 1, out_length,
-                        interpret=(use_ola == "interpret"))
-    else:
-        j = jnp.arange(fft_size)
-        target = (idx - half + 1)[:, None] + j[None, :]
-        ok = (target >= 0) & (target < out_length) & valid[:, None]
-        flat_t = jnp.where(ok, target, out_length).reshape(-1)
-        flat_v = jnp.where(ok, resp, 0.0).reshape(-1)
-        out = jnp.zeros(out_length + 1, dtype=dt).at[flat_t].add(flat_v)
-        y = out[:out_length]
+    # overlap-add as one scatter-add (reference :118-139).  On a GPU it
+    # lowers to atomic adds, whose order varies from run to run: f32
+    # outputs then differ at rounding level between runs.
+    j = jnp.arange(fft_size)
+    target = (idx - half + 1)[:, None] + j[None, :]
+    ok = (target >= 0) & (target < out_length) & valid[:, None]
+    flat_t = jnp.where(ok, target, out_length).reshape(-1)
+    flat_v = jnp.where(ok, resp, 0.0).reshape(-1)
+    out = jnp.zeros(out_length + 1, dtype=dt).at[flat_t].add(flat_v)
+    y = out[:out_length]
     return (y, overflowed) if return_overflow else y
 
 
@@ -285,7 +271,7 @@ def synthesis_frames_impl(f0, spectrogram, aperiodicity, noise, *, fs,
 #: synthesis_frames_impl un-jitted for bitwise golden parity.
 synthesis_frames = functools.partial(jax.jit, static_argnames=(
     "fs", "fft_size", "out_length", "max_pulses",
-    "use_ola", "return_overflow"))(synthesis_frames_impl)
+    "return_overflow"))(synthesis_frames_impl)
 
 
 def make_noise(key, max_pulses, fft_size, dtype=jnp.float32):
